@@ -1,0 +1,253 @@
+"""The port's executor and CLI on the CPU (``--platform cpu``): records
+bit-equal to the float64 golden model and within rtol 1e-5 of the JAX
+CLI on the same input (float32 accumulation on the JAX side), ring input,
+staging, and the guarantee that the port never imports jax."""
+
+import json
+import os
+import subprocess
+import sys
+import uuid
+
+import numpy as np
+import pytest
+import torch
+
+from paf_baseband2power_tpu import constants as C
+from paf_baseband2power_tpu.cli import paf_baseband2power as jax_cli
+from paf_baseband2power_tpu.cli import paf_gen
+from paf_baseband2power_tpu.io import ringbuffer as rb
+from paf_baseband2power_tpu.io.dada import DadaFileReader
+from paf_baseband2power_tpu.ops import frame as F
+from paf_baseband2power_tpu.ops.golden import (
+    baseband2power_golden,
+    baseband2power_scrunch_golden,
+)
+from paf_baseband2power_tpu.runtime import debug
+from paf_baseband2power_tpu_torch.cli import paf_baseband2power as cli
+from paf_baseband2power_tpu_torch.runtime import pipeline as RP
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+NDF, NCHK = 32, 48
+RTOL = 1e-5
+
+
+def _gen(path, layout="wire", nblocks=2, seed=9, ndf=NDF, nchk=NCHK):
+    args = ["-o", str(path), "-n", str(nblocks), "--ndf", str(ndf),
+            "--nchk", str(nchk), "--seed", str(seed)]
+    if layout == "rows":
+        args.append("--device-layout")
+    assert paf_gen.main(args) == 0
+
+
+def _records(path, nout=1, nchk=NCHK):
+    shape = (nchk * C.NCHAN_CHK,) if nout == 1 else (nout,
+                                                     nchk * C.NCHAN_CHK)
+    with DadaFileReader(str(path)) as r:
+        return r.header, [np.frombuffer(b, "<f4").reshape(shape)
+                          for b in r.blocks(int(np.prod(shape)) * 4)]
+
+
+def _golden(seed, nout, mean=False, ndf=NDF, nchk=NCHK):
+    block = F.synthetic_block(rng=seed, ndf=ndf, nchk=nchk)
+    if nout == 1:
+        return baseband2power_golden(block, mean=mean)
+    return baseband2power_scrunch_golden(block, nout, mean=mean)
+
+
+@pytest.mark.parametrize("nspectra", [1, 4])
+@pytest.mark.parametrize("source", ["wire", "rows", "synthetic"])
+def test_cli_matches_golden_and_jax_cli(tmp_path, source, nspectra):
+    if source == "synthetic":
+        inp, seed = "synthetic:2", 0
+    else:
+        inp, seed = str(tmp_path / "bb.dada"), 9
+        _gen(inp, layout=source, seed=seed)
+    common = ["-a", inp, "--ndf", str(NDF), "--nchk", str(NCHK),
+              "--nspectra", str(nspectra)]
+    port_out, jax_out = tmp_path / "port.dada", tmp_path / "jax.dada"
+    assert cli.main(common + ["-b", str(port_out), "--platform", "cpu"]) == 0
+    assert jax_cli.main(common + ["-b", str(jax_out)]) == 0
+    hdr, got = _records(port_out, nspectra)
+    jhdr, want_jax = _records(jax_out, nspectra)
+    assert len(got) == len(want_jax) == 2
+    assert hdr == jhdr
+    for i, rec in enumerate(got):
+        np.testing.assert_array_equal(rec, _golden(seed + i, nspectra))
+        np.testing.assert_allclose(rec, want_jax[i], rtol=RTOL)
+
+
+@pytest.mark.parametrize("layout", ["wire", "rows"])
+def test_diskdb_ring_to_port_cli(tmp_path, layout):
+    """paf_diskdb replays a recording into a ring; the port's CLI reads
+    the ring (ORDER SERIES detected from the ring header)."""
+    ndf, nchk = 32, 4
+    key = uuid.uuid4().hex[:8]
+    bb = tmp_path / "bb.dada"
+    _gen(bb, layout=layout, seed=3, ndf=ndf, nchk=nchk)
+    rb.create(key, ndf * nchk * C.DT_SIZE, 4)
+    try:
+        r = subprocess.run(
+            [sys.executable, "-m", "paf_baseband2power_tpu.cli.paf_diskdb",
+             "-a", key, "-c", str(bb), "-b", str(tmp_path)],
+            env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+            text=True, timeout=180)
+        assert r.returncode == 0, r.stderr
+        out = tmp_path / "pw.dada"
+        assert cli.main(["-a", key, "-b", str(out), "--ndf", str(ndf),
+                         "--nchk", str(nchk), "--platform", "cpu"]) == 0
+    finally:
+        if rb.exists(key):
+            rb.destroy(key)
+    _, recs = _records(out, nchk=nchk)
+    assert len(recs) == 2
+    for i, rec in enumerate(recs):
+        np.testing.assert_array_equal(
+            rec, _golden(3 + i, 1, ndf=ndf, nchk=nchk))
+
+
+def test_port_never_imports_jax(tmp_path):
+    """The port's CPU path, every module of it, runs without jax."""
+    code = (
+        "import sys\n"
+        "import paf_baseband2power_tpu_torch.ops.power\n"
+        "import paf_baseband2power_tpu_torch.ops.cuda_power\n"
+        "import paf_baseband2power_tpu_torch.runtime.pipeline\n"
+        "from paf_baseband2power_tpu_torch.cli import paf_baseband2power\n"
+        f"rc = paf_baseband2power.main(['-a', 'synthetic:2', '-b', "
+        f"{str(tmp_path / 'pw.dada')!r}, '--ndf', '16', '--nchk', '4', "
+        "'--nspectra', '2', '--platform', 'cpu'])\n"
+        "assert rc == 0\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] == 'jax'))\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code],
+                       env=dict(os.environ, PYTHONPATH=REPO),
+                       capture_output=True, text=True, timeout=180)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().splitlines()[-1] == "[]"
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_pipeline_depths_and_stats(depth):
+    src = RP.SyntheticSource(4, ndf=NDF, nchk=4, seed=5)
+    sink = RP.MemorySink()
+    stats = RP.PowerPipeline("cpu", depth=depth).run(src, sink)
+    assert stats.nblocks == len(sink.records) == 4
+    assert stats.ndf == NDF
+    assert stats.nbytes_in == 4 * NDF * 4 * C.DT_SIZE
+    assert stats.nbytes_out == 4 * 4 * C.NCHAN_CHK * 4
+    assert len(stats.block_seconds) == 4 and stats.elapsed > 0
+    assert stats.kernel_launches == 0          # the CPU runs no kernel
+    assert stats.realtime_fraction > 0 and stats.samples_per_sec > 0
+    for i, rec in enumerate(sink.records):
+        np.testing.assert_array_equal(rec, _golden(5 + i, 1, nchk=4))
+
+
+@pytest.mark.parametrize("mean", [False, True])
+def test_pipeline_rows_blocks_arrive_2d(mean):
+    """FileSource and RingSource yield rows blocks 2-D; the executor
+    views them (nseries, ndf, 256) before staging."""
+    blocks = [F.synthetic_block(rng=60 + i, ndf=NDF, nchk=4)
+              for i in range(3)]
+    src = [F.block_to_rows(b).reshape(4 * 14, -1) for b in blocks]
+    sink = RP.MemorySink()
+    pipe = RP.PowerPipeline("cpu", mean=mean, nout=2, device_layout=True)
+    pipe.run(src, sink)
+    for b, rec in zip(blocks, sink.records):
+        np.testing.assert_array_equal(
+            rec, baseband2power_scrunch_golden(b, 2, mean=mean))
+
+
+def test_pipeline_copies_read_only_blocks():
+    """Blocks may be read-only views of file bytes (FileSource)."""
+    block = F.synthetic_block(rng=2, ndf=NDF, nchk=4).reshape(NDF, -1)
+    view = np.frombuffer(block.tobytes(), "<i2").reshape(block.shape)
+    assert not view.flags.writeable
+    sink = RP.MemorySink()
+    RP.PowerPipeline("cpu").run([view, view], sink)
+    assert len(sink.records) == 2
+    np.testing.assert_array_equal(sink.records[1],
+                                  _golden(2, 1, nchk=4))
+
+
+def test_staging_rejects_shape_change():
+    staging = RP._Staging((4, 8), torch.device("cpu"), 2)
+    staging.put(np.zeros((4, 8), np.int16))
+    with pytest.raises(ValueError, match="changed"):
+        staging.put(np.zeros((4, 16), np.int16))
+
+
+@pytest.mark.parametrize("kw,item", [({"stokes": True}, "A8"),
+                                     ({"pfb_nfft": 128}, "A9")])
+def test_pipeline_unported_modes_raise(kw, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        RP.PowerPipeline("cpu", **kw)
+
+
+@pytest.mark.parametrize("layout", [False, True])
+def test_warmup_runs_on_device_zeros(layout):
+    pipe = RP.PowerPipeline("cpu", device_layout=layout, nout=4)
+    assert pipe.warmup(NDF, 4) >= 0
+
+
+@pytest.mark.parametrize("flags", [["--stokes"], ["--pfb", "128"]])
+def test_cli_unported_flags_exit(tmp_path, flags, capsys):
+    with pytest.raises(SystemExit) as e:
+        cli.main(["-a", "synthetic:1", "-b", str(tmp_path / "x.dada"),
+                  "--platform", "cpu"] + flags)
+    assert e.value.code != 0
+    assert "not yet ported" in capsys.readouterr().err
+
+
+def test_cli_cuda_platform_without_gpu_fails(tmp_path, capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = tmp_path / "x.dada"
+    with pytest.raises(SystemExit) as e:
+        cli.main(["-a", "synthetic:1", "-b", str(out), "--ndf", "8",
+                  "--nchk", "4"])
+    assert e.value.code != 0
+    assert "no CUDA device" in capsys.readouterr().err
+    assert not out.exists()
+
+
+def test_cli_synthetic_rejects_device_layout(tmp_path):
+    with pytest.raises(SystemExit):
+        cli.main(["-a", "synthetic:1", "-b", str(tmp_path / "x.dada"),
+                  "--device-layout", "--platform", "cpu"])
+
+
+def test_cli_stats_mean_header_log_profile(tmp_path, capsys, monkeypatch):
+    monkeypatch.setattr(debug, "_DEBUG", debug.debug_enabled())
+    bb, pw = tmp_path / "bb.dada", tmp_path / "pw.dada"
+    _gen(bb, seed=4, nchk=4)
+    capsys.readouterr()
+    assert cli.main(["-a", str(bb), "-b", str(pw), "--ndf", str(NDF),
+                     "--nchk", "4", "--mean", "--nspectra", "2",
+                     "--platform", "cpu", "--stats-json", "--debug",
+                     "--no-warmup", "-c", str(tmp_path / "logs"),
+                     "--profile", str(tmp_path / "prof")]) == 0
+    stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert stats["nblocks"] == 2 and stats["kernel_launches"] == 0
+    assert stats["device"] == "cpu" and stats["samples_per_sec"] > 0
+    hdr, recs = _records(pw, nout=2, nchk=4)
+    assert hdr["UTC_START"] == "2026-01-01-00:00:00"
+    assert hdr.get_int("NCHAN") == 4 * C.NCHAN_CHK
+    assert hdr.get_int("NSBLK") == 2
+    for i, rec in enumerate(recs):
+        np.testing.assert_array_equal(rec, _golden(4 + i, 2, mean=True,
+                                                   nchk=4))
+    assert (tmp_path / "logs" / "baseband2power.log").exists()
+    assert (tmp_path / "prof" / "trace.json").exists()
+
+
+def test_file_source_layouts(tmp_path):
+    wire, rows = tmp_path / "w.dada", tmp_path / "r.dada"
+    _gen(wire, nblocks=1, nchk=4)
+    _gen(rows, layout="rows", nblocks=1, nchk=4)
+    assert RP.FileSource(str(wire), ndf=NDF, nchk=4).layout == "wire"
+    src = RP.FileSource(str(rows), ndf=NDF, nchk=4)
+    assert src.layout == "rows"
+    assert [b.shape for b in src] == [(4 * 14, NDF * 256)]
+    with pytest.raises(ValueError, match="unknown layout"):
+        RP.FileSource(str(wire), ndf=NDF, nchk=4, layout="planes")
