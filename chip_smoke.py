@@ -8,16 +8,20 @@ Run from the root of a checkout, with no arguments:
 Phases, each of which raises on failure (the script then exits non-zero):
   1. environment: device, ``nvidia-smi`` name and power limit, nvcc, torch;
   2. build the CUDA kernels from ``paf_baseband2power_tpu_torch/csrc``;
-  3. kernels vs the float64 golden model at 256 x 48 (nout 1/8/256) and
-     200 x 48 (nout 1/2), wire and rows, mean on and off: bit-equal;
+  3. power and Stokes kernels vs the float64 golden model at 256 x 48
+     (nout 1/8/256) and 200 x 48 (nout 1/2), wire and rows, mean on and
+     off: bit-equal;
   4. kernels vs their plain PyTorch versions at the production 8192 x 48
-     block, full-range int16 drawn on the device and an all -32768 block:
+     block, full-range int16 drawn on the device, an all -32768 block and,
+     for Stokes, a block whose y is x turned by 90 degrees (V = -I):
      bit-equal;
-  5. the main path through the port's CLI: recordings written with
+  5. the main paths through the port's CLI: recordings written with
      ``paf_gen`` (1024 x 48, wire and ORDER SERIES) checked against the
-     golden model, then recordings of full 8192 x 48 blocks (wire,
-     wire x 64 spectra, ORDER SERIES) checked against the plain version,
-     with the kernels' launch counts taken over that full-size run;
+     golden model, then recordings of full 8192 x 48 blocks checked
+     against the plain versions: the power path (wire, wire x 64 spectra,
+     ORDER SERIES) and the Stokes path (the same three with ``--stokes``,
+     NPOL 4 headers), with each path's launch counts set to 0 before each
+     of its runs and read after;
   6. ms per block of each kernel and of its plain version at 8192 x 48
      (CUDA events, after a warm-up).
 The last two lines are the kernels' JSON record and the result line.
@@ -27,6 +31,7 @@ checkout of the repository.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import io
 import json
@@ -41,16 +46,22 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FULL_NDF, NCHK = 8192, 48
-SOURCE = "paf_baseband2power_tpu_torch/csrc/power.cu"
-# wrapper -> the pl.pallas_call it replaces (K2's call; K3's at :290 is
-# the same entry point's other tile branch)
-REPLACES = {
-    "baseband2power_cuda": "paf_baseband2power_tpu/ops/pallas_power.py:103",
-    "baseband2power_scrunch_cuda":
-        "paf_baseband2power_tpu/ops/pallas_power.py:250",
-    "baseband2power_scrunch_rows_cuda":
-        "paf_baseband2power_tpu/ops/pallas_power.py:776",
+CSRC = "paf_baseband2power_tpu_torch/csrc/"
+PALLAS = "paf_baseband2power_tpu/ops/pallas_power.py"
+# wrapper -> (its kernel's source, the pl.pallas_call it replaces). K2's
+# call stands for K3's at :290, the same entry point's other tile class;
+# K8's (:609, the tile class of nout 1 at 8192 frames) for K7's packed
+# tile class at :576.
+KERNELS = {
+    "baseband2power_cuda": ("power.cu", 103),
+    "baseband2power_scrunch_cuda": ("power.cu", 250),
+    "baseband2power_scrunch_rows_cuda": ("power.cu", 776),
+    "baseband2stokes_cuda": ("stokes.cu", 703),
+    "baseband2stokes_scrunch_cuda": ("stokes.cu", 397),
+    "baseband2stokes_scrunch_rows_cuda": ("stokes.cu", 609),
 }
+PATHS = {"power": [k for k in KERNELS if "power" in k],
+         "stokes": [k for k in KERNELS if "stokes" in k]}
 
 
 def log(*a) -> None:
@@ -85,20 +96,21 @@ def run_cli(cli, argv: list[str]) -> dict:
     return json.loads(buf.getvalue().strip().splitlines()[-1])
 
 
-def read_records(path: str, shape: tuple) -> list[np.ndarray]:
+def read_records(path: str, shape: tuple) -> tuple[dict, list[np.ndarray]]:
     from paf_baseband2power_tpu.io.dada import DadaFileReader
 
     with DadaFileReader(path) as r:
         nbytes = int(np.prod(shape)) * 4
-        return [np.frombuffer(b, "<f4").reshape(shape)
-                for b in r.blocks(nbytes)]
+        return r.header, [np.frombuffer(b, "<f4").reshape(shape)
+                          for b in r.blocks(nbytes)]
 
 
 def write_full_recording(path: str, layout: str, nblocks: int,
                          gen: torch.Generator, dev: torch.device) -> list:
     """Write ``nblocks`` full-range 8192 x 48 blocks drawn on the card to a
     .dada recording (``ORDER SERIES`` for rows); returns each block's plain
-    records: ``[power]`` for rows, ``[power, 64-window power]`` for wire."""
+    records: ``[power, Stokes]`` for rows, ``[power, 64-window power,
+    Stokes, 64-window Stokes]`` for wire."""
     from paf_baseband2power_tpu.io.dada import DadaFileWriter, baseband_header
     from paf_baseband2power_tpu_torch.ops import power as P
 
@@ -113,10 +125,13 @@ def write_full_recording(path: str, layout: str, nblocks: int,
                               dtype=torch.int16, device=dev, generator=gen)
             if layout == "rows":
                 rows = x.view(NCHK * 14, FULL_NDF, P.ROW_LANES)
-                refs.append([P.baseband2power_scrunch_rows(rows, 1)[0]])
+                refs.append([P.baseband2power_scrunch_rows(rows, 1)[0],
+                             P.baseband2stokes_scrunch_rows(rows, 1)[0]])
             else:
                 refs.append([P.baseband2power_2d(x),
-                             P.baseband2power_scrunch_2d(x, 64)])
+                             P.baseband2power_scrunch_2d(x, 64),
+                             P.baseband2stokes_2d(x),
+                             P.baseband2stokes_scrunch_2d(x, 64)])
             refs[-1] = [r.cpu().numpy() for r in refs[-1]]
             w.write(x.cpu().numpy())
     return refs
@@ -133,6 +148,8 @@ def main() -> int:
     from paf_baseband2power_tpu.ops.golden import (
         baseband2power_golden,
         baseband2power_scrunch_golden,
+        baseband2stokes_golden,
+        baseband2stokes_scrunch_golden,
     )
     from paf_baseband2power_tpu_torch.cli import paf_baseband2power as cli
     from paf_baseband2power_tpu_torch.ops import _build
@@ -164,10 +181,10 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s")
 
     # --- 3. kernels vs the float64 golden at 256 x 48 (and 200 x 48) -----
-    # 256 frames: nout 1/8/256 as in the issue's shapes; 200 frames: windows
-    # of 200 and 100 frames end in a partial 64-frame slab and have mean
-    # divisors that are not powers of two.
-    n0 = sum(CP.launches.values())
+    # 256 frames: nout 1/8/256 as in the main path's shapes; 200 frames:
+    # windows of 200 and 100 frames end in a partial 64-frame slab and have
+    # mean divisors that are not powers of two.
+    CP.launches.clear()
     for ndf, nouts in ((256, (1, 8, 256)), (200, (1, 2))):
         block = F.synthetic_block(rng=11, ndf=ndf, nchk=NCHK)
         wire = torch.from_numpy(block.reshape(ndf, -1)).to(dev)
@@ -193,46 +210,128 @@ def main() -> int:
                     check(np.array_equal(got.cpu().numpy(), want),
                           f"{ndf} frames {name} nout={nout} mean={mean} "
                           "bit-equal to the golden")
-    check(sum(CP.launches.values()) - n0 == 28, "launch counter rose by 28")
-    log("[3] 256 x 48 (nout 1/8/256) and 200 x 48 (nout 1/2): wire, bytes "
-        "and rows, mean off/on: bit-equal to the float64 golden")
+            want = baseband2stokes_golden(block, mean=mean)
+            check(np.array_equal(
+                CP.baseband2stokes_cuda(wire, mean=mean).cpu().numpy(),
+                want), f"{ndf} frames Stokes wire mean={mean} bit-equal "
+                "to the golden")
+            for nout in nouts:
+                want = baseband2stokes_scrunch_golden(block, nout, mean=mean)
+                for name, got in (
+                        ("wire", CP.baseband2stokes_scrunch_cuda(
+                            wire, nout, mean=mean)),
+                        ("rows", CP.baseband2stokes_scrunch_rows_cuda(
+                            rows, nout, mean=mean))):
+                    check(np.array_equal(got.cpu().numpy(), want),
+                          f"{ndf} frames Stokes {name} nout={nout} "
+                          f"mean={mean} bit-equal to the golden")
+    counts = {path: sum(CP.launches[k] for k in names)
+              for path, names in PATHS.items()}
+    check(counts == {"power": 28, "stokes": 24},
+          f"launch counters rose by 28 (power) and 24 (Stokes): {counts}")
+    log("[3] 256 x 48 (nout 1/8/256) and 200 x 48 (nout 1/2): power (wire, "
+        "bytes, rows) and Stokes (wire, rows), mean off/on: bit-equal to the "
+        "float64 golden")
 
     # --- 4. kernels vs plain versions at 8192 x 48 ------------------------
     gen = torch.Generator(device=dev)
-    gen.manual_seed(20261016)
-    big = torch.randint(-32768, 32768, (FULL_NDF, NCHK * P.LANES_PER_CHUNK),
-                        dtype=torch.int16, device=dev, generator=gen)
+    big = torch.empty((FULL_NDF, NCHK * P.LANES_PER_CHUNK), dtype=torch.int16,
+                      device=dev)
     big_rows = big.view(NCHK * 14, FULL_NDF, P.ROW_LANES)
-    cases = {
-        "baseband2power_cuda": lambda x: (
-            CP.baseband2power_cuda(x), P.baseband2power_2d(x)),
-        "baseband2power_scrunch_cuda": lambda x: (
+
+    def fill(kind: str, layout: str) -> None:
+        """Fill ``big`` in place: full-range random, all -32768, or random
+        with y = i x in ``layout``'s pairing (xi kept off -32768 so that
+        -xi is an int16): Q = U = 0 and V = -I exactly."""
+        if kind == "-32768":
+            big.fill_(-32768)
+            return
+        gen.manual_seed(20261016)
+        torch.randint(-32768, 32768, big.shape, dtype=torch.int16,
+                      device=dev, generator=gen, out=big)
+        if kind == "turned":
+            if layout == "wire":     # lanes (xr, xi, yr, yi) per group
+                v = big.view(FULL_NDF, -1, 2, 2)
+                x, y = v[..., 0, :], v[..., 1, :]
+            else:                    # series 2k, 2k + 1; (re, im) lanes
+                v = big.view(NCHK * 7, 2, FULL_NDF, P.ROW_LANES // 2, 2)
+                x, y = v[:, 0], v[:, 1]
+            x[..., 1].clamp_(min=-32767)
+            y[..., 0] = -x[..., 1]
+            y[..., 1] = x[..., 0]
+
+    rows_shape = big_rows.shape
+    cases = {   # name: (layout, fills, kernel and plain on the block)
+        "baseband2power_cuda": ("wire", ("random", "-32768"), lambda x: (
+            CP.baseband2power_cuda(x), P.baseband2power_2d(x))),
+        "baseband2power_scrunch_cuda": ("wire", ("random", "-32768"),
+                                        lambda x: (
             CP.baseband2power_scrunch_cuda(x, 64),
-            P.baseband2power_scrunch_2d(x, 64)),
-        "baseband2power_scrunch_rows_cuda": lambda x: (
-            CP.baseband2power_scrunch_rows_cuda(
-                x.view(big_rows.shape), 1),
-            P.baseband2power_scrunch_rows(x.view(big_rows.shape), 1)),
+            P.baseband2power_scrunch_2d(x, 64))),
+        "baseband2power_scrunch_rows_cuda": ("rows", ("random", "-32768"),
+                                             lambda x: (
+            CP.baseband2power_scrunch_rows_cuda(x.view(rows_shape), 1),
+            P.baseband2power_scrunch_rows(x.view(rows_shape), 1))),
+        "baseband2stokes_cuda": ("wire", ("random", "-32768", "turned"),
+                                 lambda x: (
+            CP.baseband2stokes_cuda(x), P.baseband2stokes_2d(x))),
+        "baseband2stokes_scrunch_cuda": ("wire",
+                                         ("random", "-32768", "turned"),
+                                         lambda x: (
+            CP.baseband2stokes_scrunch_cuda(x, 64),
+            P.baseband2stokes_scrunch_2d(x, 64))),
+        "baseband2stokes_scrunch_rows_cuda": ("rows",
+                                              ("random", "-32768", "turned"),
+                                              lambda x: (
+            CP.baseband2stokes_scrunch_rows_cuda(x.view(rows_shape), 1),
+            P.baseband2stokes_scrunch_rows(x.view(rows_shape), 1))),
     }
     err = {name: 0.0 for name in cases}
-    for fill in ("random", "-32768"):
-        if fill == "-32768":
-            big.fill_(-32768)
-        for name, fn in cases.items():
+    for kind, layout in (("random", None), ("-32768", None),
+                         ("turned", "wire"), ("turned", "rows")):
+        fill(kind, layout)
+        for name, (lay, fills, fn) in cases.items():
+            if kind not in fills or layout not in (None, lay):
+                continue
             got, want = fn(big)
             err[name] = max(err[name], (got - want).abs().max().item())
             check(torch.equal(got, want),
-                  f"{name} ({fill}) bit-equal to the plain version")
+                  f"{name} ({kind}) bit-equal to the plain version")
+            if "stokes" not in name or kind == "random":
+                continue
+            i, q, u, v = got.reshape(-1, 4, NCHK * 7).unbind(dim=1)
+            if kind == "-32768":
+                # FULL_NDF x 128 samples of I = 2^32, over the windows
+                check(bool((i == FULL_NDF * 128 * 2.0 ** 32
+                            / i.shape[0]).all()
+                           and (q == 0).all() and torch.equal(u, i)
+                           and (v == 0).all()),
+                      f"{name} all -32768: I = U = 2^32 per sample, "
+                      "Q = V = 0")
+            else:
+                check(bool((q == 0).all() and (u == 0).all()
+                           and torch.equal(v, -i)),
+                      f"{name} y = i x: Q = U = 0, V = -I")
+        if kind == "turned":
+            continue
         for nout in (1, 64):
-            got = CP.baseband2power_scrunch_rows_cuda(big_rows, nout,
-                                                      mean=True)
-            want = P.baseband2power_scrunch_rows(big_rows, nout, mean=True)
-            check(torch.equal(got, want),
-                  f"rows nout={nout} mean ({fill}) bit-equal to plain")
-    check(bool((got == 2.0 ** 31).all()),
-          "all -32768 block: mean power 2 x 2^30 per channel sample")
-    log(f"[4] 8192 x 48: random and all -32768 blocks, wire/rows, nout 1 "
-        f"and 64: bit-equal to the plain versions (max abs err {err})")
+            for kern, plain in ((CP.baseband2power_scrunch_rows_cuda,
+                                 P.baseband2power_scrunch_rows),
+                                (CP.baseband2stokes_scrunch_rows_cuda,
+                                 P.baseband2stokes_scrunch_rows)):
+                got = kern(big_rows, nout, mean=True)
+                check(torch.equal(got, plain(big_rows, nout, mean=True)),
+                      f"{kern.__name__} nout={nout} mean ({kind}) "
+                      "bit-equal to plain")
+        if kind == "-32768":
+            pw = CP.baseband2power_scrunch_rows_cuda(big_rows, 64, mean=True)
+            check(bool((pw == 2.0 ** 31).all()),
+                  "all -32768 block: mean power 2 x 2^30 per channel sample")
+            check(bool((got[:, 0] == 2.0 ** 32).all()),
+                  "all -32768 block: mean Stokes I 2^32 per sample")
+    log(f"[4] 8192 x 48: random and all -32768 blocks (power and Stokes), "
+        f"y = i x blocks (Stokes), wire/rows, nout 1 and 64: bit-equal to the "
+        f"plain versions (max abs err {err})")
     del big, big_rows
 
     # --- 5. main path through the CLI ----------------------------------------
@@ -250,7 +349,7 @@ def main() -> int:
                 check(paf_gen.main(gen_args) == 0, "paf_gen")
             stats = run_cli(cli, ["-a", bb, "-b", pw, "--ndf", str(ndf),
                                   "--nchk", str(NCHK)])
-            recs = read_records(pw, (NCHK * 7,))
+            _, recs = read_records(pw, (NCHK * 7,))
             check(len(recs) == 3 and stats["kernel_launches"] == 3,
                   f"{layout}: 3 records from 3 kernel launches")
             for i, rec in enumerate(recs):
@@ -264,19 +363,27 @@ def main() -> int:
 
         # 5b. full 8192 x 48 blocks, recorded from device-drawn data; one
         # recording on disk at a time (8.5 GB). Writing one runs only the
-        # plain versions, so the counts are the CLI runs' alone.
-        runs = {"wire": (3, [([], 0), (["--nspectra", "64"], 1)]),
-                "rows": (2, [([], 0)])}
+        # plain versions. Each path's counts are set to 0 just before each
+        # of its CLI runs and read just after.
+        runs = {"wire": (3, [("power", [], 0),
+                             ("power", ["--nspectra", "64"], 1),
+                             ("stokes", ["--stokes"], 2),
+                             ("stokes", ["--stokes", "--nspectra", "64"], 3)]),
+                "rows": (2, [("power", [], 0), ("stokes", ["--stokes"], 1)])}
         main_stats = []
-        CP.launches.clear()
+        path_launches = {path: collections.Counter() for path in PATHS}
         for layout, (nblocks, cli_runs) in runs.items():
             path = os.path.join(tmp, f"full-{layout}.dada")
             refs = write_full_recording(path, layout, nblocks, gen, dev)
-            for extra, which in cli_runs:
+            for kind, extra, which in cli_runs:
                 pw = os.path.join(tmp, "full-power.dada")
+                CP.launches.clear()
                 st = run_cli(cli, ["-a", path, "-b", pw] + extra)
+                path_launches[kind].update(CP.launches)
                 main_stats.append((layout, extra, st))
-                recs = read_records(pw, refs[0][which].shape)
+                hdr, recs = read_records(pw, refs[0][which].shape)
+                check(hdr["NPOL"] == ("4" if kind == "stokes" else "1"),
+                      f"full {layout} {extra}: header NPOL {hdr['NPOL']}")
                 check(len(recs) == nblocks,
                       f"full {layout} {extra}: one record per block")
                 for rec, ref in zip(recs, refs):
@@ -284,16 +391,18 @@ def main() -> int:
                           f"full {layout} {extra}: record bit-equal to the "
                           "plain version")
             os.remove(path)
-        main_launches = dict(CP.launches)
-        for name in REPLACES:
-            check(main_launches.get(name, 0) > 0,
-                  f"main path launched {name}")
+        for kind, names in PATHS.items():
+            for name in names:
+                check(path_launches[kind][name] > 0,
+                      f"{kind} main path launched {name}")
     for layout, extra, st in main_stats:
         log(f"[5b] CLI 8192 x 48 {layout} {' '.join(extra)}: "
             f"{st['nblocks']} blocks in {st['elapsed_sec']:.3f} s, "
             f"{st['realtime_x']:.3f}x real time, "
             f"{st['kernel_launches']} kernel launches")
-    log(f"[5b] launches over the full-size main path: {main_launches}")
+    for kind in PATHS:
+        log(f"[5b] launches over the full-size {kind} path: "
+            f"{dict(path_launches[kind])}")
 
     # --- 6. timing at 8192 x 48 ----------------------------------------------
     gen.manual_seed(7)
@@ -310,6 +419,15 @@ def main() -> int:
         "baseband2power_scrunch_rows_cuda": (
             lambda: CP.baseband2power_scrunch_rows_cuda(big_rows, 1),
             lambda: P.baseband2power_scrunch_rows(big_rows, 1)),
+        "baseband2stokes_cuda": (
+            lambda: CP.baseband2stokes_cuda(big),
+            lambda: P.baseband2stokes_2d(big)),
+        "baseband2stokes_scrunch_cuda": (
+            lambda: CP.baseband2stokes_scrunch_cuda(big, 64),
+            lambda: P.baseband2stokes_scrunch_2d(big, 64)),
+        "baseband2stokes_scrunch_rows_cuda": (
+            lambda: CP.baseband2stokes_scrunch_rows_cuda(big_rows, 1),
+            lambda: P.baseband2stokes_scrunch_rows(big_rows, 1)),
     }
     gb = big.numel() * 2 / 1e9
     kernels = []
@@ -323,9 +441,12 @@ def main() -> int:
         log(f"[6] {name}: {ms:.4f} ms/block ({gb / ms * 1e3:.1f} GB/s), "
             f"plain {plain_ms:.4f} ms/block ({gb / plain_ms * 1e3:.1f} "
             f"GB/s) on {smi}")
+        source, line = KERNELS[name]
+        kind = "stokes" if "stokes" in name else "power"
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": main_launches[name],
+            "name": name, "route": "cuda", "source": CSRC + source,
+            "replaces": f"{PALLAS}:{line}",
+            "launches": path_launches[kind][name],
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
         })
     check("jax" not in sys.modules, "no jax imported")

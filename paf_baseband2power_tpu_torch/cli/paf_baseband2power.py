@@ -1,7 +1,7 @@
 """CLI: the compute stage on PyTorch and CUDA (reference parity:
 ``paf_baseband2power``).
 
-Flags of the JAX package's CLI for the direct-power path:
+Flags of the JAX package's CLI for direct detection (power or ``--stokes``):
   -a  input: a .dada file, a ring key (``ring:KEY`` or a bare hex key),
       or ``synthetic[:N]``
   -b  output: a .dada file or ring key
@@ -72,7 +72,8 @@ def main(argv=None) -> int:
                     help="skip building and running the kernels before "
                     "data flows")
     ap.add_argument("--stokes", action="store_true",
-                    help="full-Stokes detection (not yet ported)")
+                    help="full-Stokes detection (I,Q,U,V per channel; "
+                    "NPOL 4 records) instead of total power")
     ap.add_argument("--pfb", type=int, default=0, metavar="NFFT",
                     help="polyphase filterbank channelizer (not yet ported)")
     ap.add_argument("--stats-json", action="store_true",
@@ -90,8 +91,6 @@ def main(argv=None) -> int:
                     "boundary, discarding pre-SOD blocks")
     args = ap.parse_args(argv)
 
-    if args.stokes:
-        ap.error("not yet ported: --stokes (ROADMAP A8)")
     if args.pfb:
         ap.error("not yet ported: --pfb (ROADMAP A9)")
     if args.platform == "cuda":
@@ -153,6 +152,10 @@ def main(argv=None) -> int:
         nchan=args.nchk * C.NCHAN_CHK,
         tint_sec=args.ndf * C.TDF_SEC,   # = TINT at the standard 8192
     )
+    if args.stokes:
+        # full-Stokes records: 4 x nchan float32 per spectrum, I/Q/U/V rows
+        hdr["NPOL"] = "4"
+        hdr["STOKES"] = "IQUV"
     if args.nspectra > 1:
         # finer output cadence: TSAMP shrinks by the sub-integration factor
         hdr["TSAMP"] = str(float(hdr["TSAMP"]) / args.nspectra)
@@ -170,7 +173,8 @@ def main(argv=None) -> int:
         set_debug(True)
     pipe = PowerPipeline(device, mean=args.mean, depth=args.depth,
                          log_dir=args.dir, nout=args.nspectra,
-                         device_layout=args.device_layout)
+                         device_layout=args.device_layout,
+                         stokes=args.stokes)
     if not args.no_warmup:
         pipe.warmup(args.ndf, args.nchk)
     with profile_trace(args.profile, device):

@@ -34,33 +34,11 @@
 
 #include <cuda_runtime.h>
 
+#include "geometry.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;          // columns per block
-constexpr int kFrames = 64;            // frames per block (one window slab)
-constexpr int kChanChk = 7;            // channels per chunk
-constexpr int64_t kVecChunk = 448;     // 16-byte vectors per chunk-frame (7168 B)
-constexpr int64_t kVecSeries = 32;     // 16-byte vectors per series-frame (512 B)
-
-// Wire layout (ndf, nchk * 3584) int16. Column c is the c-th 16-byte vector
-// of a frame row; its 8 lanes are two 4-lane groups (pol x dim) of
-// group index g = 2c and 2c + 1, with g = chunk * 896 + sample * 7 + chan.
-struct Wire {
-  static constexpr int kBins = 2 * kChanChk;  // 256 columns span <= 2 chunks
-  __device__ static int64_t start(int64_t f, int64_t c, int64_t /*ndf*/,
-                                  int64_t ncol) {
-    return f * ncol + c;
-  }
-  __device__ static int64_t stride(int64_t ncol) { return ncol; }
-  __device__ static int64_t chan(int64_t g) {
-    return g / (2 * kVecChunk) * kChanChk + g % kChanChk;
-  }
-  __device__ static int64_t bin_lo(int64_t c) { return chan(2 * c); }
-  __device__ static int64_t bin_hi(int64_t c) { return chan(2 * c + 1); }
-  __device__ static int64_t first_bin(int64_t c0) {
-    return 2 * c0 / (2 * kVecChunk) * kChanChk;
-  }
-};
+using namespace pafb2p;
 
 // Rows layout (nseries, ndf, 256) int16 with series = chan * 2 + pol. Column
 // c is vector c % 32 of series c / 32; both pols of a channel fold into one
@@ -95,17 +73,14 @@ power_kernel(const int4* __restrict__ x, int64_t ndf, int64_t ndf_w,
 
   const int64_t c0 = static_cast<int64_t>(blockIdx.y) * kThreads;
   const int64_t c = c0 + threadIdx.x;
-  const int64_t w = blockIdx.x / spw;
-  const int64_t f0 = w * ndf_w + blockIdx.x % spw * kFrames;
-  const int64_t left = (w + 1) * ndf_w - f0;
-  const int nf = left < kFrames ? static_cast<int>(left) : kFrames;
+  const Slab sl = block_slab(ndf_w, spw);
 
   unsigned long long lo = 0, hi = 0;
   if (c < ncol) {
-    const int4* p = x + L::start(f0, c, ndf, ncol);
+    const int4* p = x + L::start(sl.f0, c, ndf, ncol);
     const int64_t s = L::stride(ncol);
 #pragma unroll 8
-    for (int i = 0; i < nf; ++i) {
+    for (int i = 0; i < sl.nf; ++i) {
       const int4 v = __ldg(p + i * s);
       lo += static_cast<unsigned long long>(sq2(v.x)) + sq2(v.y);
       hi += static_cast<unsigned long long>(sq2(v.z)) + sq2(v.w);
@@ -120,7 +95,7 @@ power_kernel(const int4* __restrict__ x, int64_t ndf, int64_t ndf_w,
   __syncthreads();
   if (threadIdx.x < L::kBins && b0 + threadIdx.x < nchan &&
       bins[threadIdx.x] != 0) {
-    atomicAdd(acc + w * nchan + b0 + threadIdx.x, bins[threadIdx.x]);
+    atomicAdd(acc + sl.w * nchan + b0 + threadIdx.x, bins[threadIdx.x]);
   }
 }
 
@@ -138,19 +113,11 @@ __global__ void finish_kernel(const unsigned long long* __restrict__ acc,
 template <class L>
 int launch_power(const void* x, int64_t ndf, int64_t ncol, int64_t nchan,
                  int64_t nout, void* acc, void* stream) {
-  if (ndf <= 0 || ncol <= 0 || nout <= 0 || ndf % nout) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int64_t ndf_w = ndf / nout;
-  const int64_t spw = (ndf_w + kFrames - 1) / kFrames;
-  const int64_t gx = nout * spw;
-  const int64_t gy = (ncol + kThreads - 1) / kThreads;
-  if (gx > 0x7fffffff || gy > 0xffff) {
-    return static_cast<int>(cudaErrorInvalidConfiguration);
-  }
-  power_kernel<L><<<dim3(static_cast<unsigned>(gx), static_cast<unsigned>(gy)),
-                    kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int4*>(x), ndf, ndf_w, spw, ncol, nchan,
+  Grid g;
+  const cudaError_t e = make_grid(ndf, ncol, nout, &g);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  power_kernel<L><<<g.blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int4*>(x), ndf, g.ndf_w, g.spw, ncol, nchan,
       static_cast<unsigned long long*>(acc));
   return static_cast<int>(cudaGetLastError());
 }
@@ -174,11 +141,13 @@ int pafb2p_power_rows(const void* x, int64_t nseries, int64_t ndf,
                             acc, stream);
 }
 
-// acc (n,) int64 -> out (n,) float32; divisor <= 0 keeps the sum.
-int pafb2p_power_finish(const void* acc, void* out, int64_t n, double divisor,
-                        void* stream) {
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+// acc (nout, nchan) int64 -> out (nout, nchan) float32; divisor <= 0 keeps
+// the sum.
+int pafb2p_power_finish(const void* acc, void* out, int64_t nout,
+                        int64_t nchan, double divisor, void* stream) {
+  if (nout <= 0 || nchan <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const int threads = 256;
+  const int64_t n = nout * nchan;
   finish_kernel<<<static_cast<unsigned>((n + threads - 1) / threads), threads,
                   0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const unsigned long long*>(acc), static_cast<float*>(out), n,

@@ -1,13 +1,15 @@
 """Build the package's CUDA kernels from ``csrc/`` at first use.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
+``nvcc`` compiles every ``csrc/*.cu``, one process per source, all started
+together, and links the objects into one shared library with a plain
 ``extern "C"`` interface, loaded with ``ctypes`` (the pattern of the JAX
 package's native ring library, ``io/ringbuffer.py``). It needs neither
 ``ninja`` nor PyTorch's headers, so a build takes seconds.
 
-The library is named after a hash of the sources and flags, so an edited
-source can never load a stale binary, and it is written under a temporary
-name and renamed into place, so concurrent processes cannot race.
+The library is named after a hash of the sources, headers and flags, so an
+edited file can never load a stale binary, and it is built in a private
+temporary directory and renamed into place, so concurrent processes cannot
+race.
 """
 
 from __future__ import annotations
@@ -18,13 +20,14 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, ".build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -45,8 +48,12 @@ def sources(csrc_dir: str) -> list[str]:
     return sorted(glob.glob(os.path.join(csrc_dir, "*.cu")))
 
 
+def headers(csrc_dir: str) -> list[str]:
+    return sorted(glob.glob(os.path.join(csrc_dir, "*.cuh")))
+
+
 def source_hash(paths: list[str]) -> str:
-    """Hash of the flags and every source's name and bytes."""
+    """Hash of the flags and every file's name and bytes."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in paths:
         h.update(os.path.basename(p).encode() + b"\0")
@@ -66,7 +73,9 @@ def build(csrc_dir: str | None = None, build_dir: str | None = None,
     srcs = sources(csrc_dir)
     if not srcs:
         raise RuntimeError(f"no CUDA sources in {csrc_dir}")
-    lib = os.path.join(build_dir, f"libpafb2p_cuda-{source_hash(srcs)}.so")
+    lib = os.path.join(
+        build_dir,
+        f"libpafb2p_cuda-{source_hash(srcs + headers(csrc_dir))}.so")
     if os.path.exists(lib):
         return lib
     nvcc = nvcc or find_nvcc()
@@ -76,17 +85,32 @@ def build(csrc_dir: str | None = None, build_dir: str | None = None,
             f"nvcc not found ({where}): the CUDA kernels need the CUDA "
             "toolkit")
     os.makedirs(build_dir, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *srcs]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode or not os.path.exists(tmp):
-        if os.path.exists(tmp):
-            os.remove(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({r.returncode}): {' '.join(cmd)}\n"
-            f"{r.stderr}{r.stdout}")
-    os.replace(tmp, lib)
+    tmp = tempfile.mkdtemp(prefix=".build-", dir=build_dir)
+    try:
+        objs = [os.path.join(tmp, f"{os.path.basename(s)}.o") for s in srcs]
+        _run_nvcc([([nvcc, *NVCC_FLAGS, "-c", "-o", o, s], o)
+                   for s, o in zip(srcs, objs)])
+        tmp_lib = os.path.join(tmp, os.path.basename(lib))
+        _run_nvcc([([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp_lib, *objs],
+                    tmp_lib)])
+        os.replace(tmp_lib, lib)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return lib
+
+
+def _run_nvcc(jobs: list[tuple[list[str], str]]) -> None:
+    """Start every ``(command, output file)`` job at once and wait for all
+    of them; raise with nvcc's output for the first that did not write its
+    file."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd, _ in jobs]
+    outs = [p.communicate() for p in procs]
+    for (cmd, path), p, (stdout, stderr) in zip(jobs, procs, outs):
+        if p.returncode or not os.path.exists(path):
+            raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                               f"{' '.join(cmd)}\n{stderr}{stdout}")
 
 
 def load_library() -> ctypes.CDLL:
@@ -100,7 +124,10 @@ def load_library() -> ctypes.CDLL:
             sigs = {
                 "pafb2p_power_wire": [ptr, i64, i64, i64, ptr, ptr],
                 "pafb2p_power_rows": [ptr, i64, i64, i64, ptr, ptr],
-                "pafb2p_power_finish": [ptr, ptr, i64, f64, ptr],
+                "pafb2p_power_finish": [ptr, ptr, i64, i64, f64, ptr],
+                "pafb2p_stokes_wire": [ptr, i64, i64, i64, ptr, ptr],
+                "pafb2p_stokes_rows": [ptr, i64, i64, i64, ptr, ptr],
+                "pafb2p_stokes_finish": [ptr, ptr, i64, i64, f64, ptr],
             }
             for name, args in sigs.items():
                 fn = getattr(lib, name)

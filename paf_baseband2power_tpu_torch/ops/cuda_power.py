@@ -1,8 +1,10 @@
-"""Direct power on the card: bindings of ``csrc/power.cu``.
+"""Detection on the card: bindings of ``csrc/power.cu`` and
+``csrc/stokes.cu``.
 
-Counterpart of ``paf_baseband2power_tpu/ops/pallas_power.py``'s power
-entry points (wire, wire x ``nout`` windows, series rows). One CUDA kernel
-family serves all of them; see the note at the top of ``csrc/power.cu``.
+Counterpart of ``paf_baseband2power_tpu/ops/pallas_power.py``'s entry
+points for power and full Stokes (wire, wire x ``nout`` windows, series
+rows). One CUDA kernel family serves each; see the notes at the top of the
+two sources.
 
 Dispatch is by the input's device and nothing else: a CPU tensor goes to
 the plain version in ``ops/power.py``, a CUDA tensor to the kernel, which
@@ -30,32 +32,39 @@ def pack_block_2d(block6d):
     return block6d.reshape(block6d.shape[0], -1)
 
 
-def _check_cuda(x: torch.Tensor) -> None:
-    if x.device.type != "cuda":
-        raise ValueError(f"power kernels take cpu or cuda tensors, got "
+def _on_cpu(x: torch.Tensor) -> bool:
+    """True for a CPU tensor, which takes the plain version; False for a
+    CUDA tensor the kernels take; raises for anything else."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the kernels take cpu or cuda tensors, got "
                          f"{x.device}")
     if x.dtype != torch.int16:
-        raise TypeError(f"power kernels take int16 blocks, got {x.dtype}")
+        raise TypeError(f"the kernels take int16 blocks, got {x.dtype}")
+    if x.device.type == "cpu":
+        return True
     if not x.is_contiguous():
-        raise ValueError("power kernels take contiguous blocks")
+        raise ValueError("the kernels take contiguous blocks")
+    return False
 
 
-def _launch(kernel: str, x: torch.Tensor, dims: tuple[int, int],
-            nchan: int, nout: int, divisor: int | None) -> torch.Tensor:
-    """Run ``pafb2p_power_<kernel>`` on ``x`` and its float32 epilogue."""
+def _launch(family: str, layout: str, x: torch.Tensor, dims: tuple[int, int],
+            shape: tuple[int, ...], divisor: int | None) -> torch.Tensor:
+    """Run ``pafb2p_<family>_<layout>`` on ``x`` into an int64 scratch of
+    ``shape`` and its float32 epilogue ``pafb2p_<family>_finish``."""
     lib = load_library()
     if x.data_ptr() % 16:
-        raise ValueError("power kernels need 16-byte aligned blocks")
-    acc = torch.zeros((nout, nchan), dtype=torch.int64, device=x.device)
-    out = torch.empty((nout, nchan), dtype=torch.float32, device=x.device)
+        raise ValueError("the kernels need 16-byte aligned blocks")
+    acc = torch.zeros(shape, dtype=torch.int64, device=x.device)
+    out = torch.empty(shape, dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    nout, nchan = shape[0], shape[-1]
     with torch.cuda.device(x.device):
-        launch = getattr(lib, f"pafb2p_power_{kernel}")
+        launch = getattr(lib, f"pafb2p_{family}_{layout}")
         _raise(lib, launch(x.data_ptr(), *dims, nout, acc.data_ptr(),
                            stream))
-        _raise(lib, lib.pafb2p_power_finish(
-            acc.data_ptr(), out.data_ptr(), acc.numel(),
-            float(divisor or 0), stream))
+        finish = getattr(lib, f"pafb2p_{family}_finish")
+        _raise(lib, finish(acc.data_ptr(), out.data_ptr(), nout, nchan,
+                           float(divisor or 0), stream))
     return out
 
 
@@ -70,10 +79,10 @@ def baseband2power_scrunch_cuda(block2d: torch.Tensor, nout: int,
     """Wire block ``(ndf, nchk * 3584) int16`` -> ``(nout, nchk * 7)``
     float32 (port of ``baseband2power_scrunch_pallas``)."""
     ndf, nchk = P.wire_geometry(block2d, nout)
-    if block2d.device.type == "cpu":
+    if _on_cpu(block2d):
         return P.baseband2power_scrunch_2d(block2d, nout, mean=mean)
-    _check_cuda(block2d)
-    out = _launch("wire", block2d, (ndf, nchk), nchk * NCHAN_CHK, nout,
+    out = _launch("power", "wire", block2d, (ndf, nchk),
+                  (nout, nchk * NCHAN_CHK),
                   P.mean_divisor(ndf // nout) if mean else None)
     launches["baseband2power_scrunch_cuda"] += 1
     return out
@@ -84,11 +93,10 @@ def baseband2power_cuda(block2d: torch.Tensor,
     """Wire block ``(ndf, nchk * 3584) int16`` -> ``(nchk * 7,)`` float32
     (port of ``baseband2power_pallas``)."""
     ndf, nchk = P.wire_geometry(block2d, 1)
-    if block2d.device.type == "cpu":
+    if _on_cpu(block2d):
         return P.baseband2power_2d(block2d, mean=mean)
-    _check_cuda(block2d)
-    out = _launch("wire", block2d, (ndf, nchk), nchk * NCHAN_CHK, 1,
-                  P.mean_divisor(ndf) if mean else None)
+    out = _launch("power", "wire", block2d, (ndf, nchk),
+                  (1, nchk * NCHAN_CHK), P.mean_divisor(ndf) if mean else None)
     launches["baseband2power_cuda"] += 1
     return out[0]
 
@@ -107,14 +115,64 @@ def baseband2power_scrunch_rows_cuda(rows: torch.Tensor, nout: int = 1,
     int16 -> ``(nout, nseries / 2)`` float32 (port of
     ``baseband2power_scrunch_rows_pallas``)."""
     x3 = P.rows_geometry(rows, nout)
-    if rows.device.type == "cpu":
+    if _on_cpu(rows):
         return P.baseband2power_scrunch_rows(rows, nout, mean=mean)
-    _check_cuda(rows)
+    nseries, ndf = _rows_dims(x3)
+    out = _launch("power", "rows", x3, (nseries, ndf), (nout, nseries // 2),
+                  P.mean_divisor(ndf // nout) if mean else None)
+    launches["baseband2power_scrunch_rows_cuda"] += 1
+    return out
+
+
+def _rows_dims(x3: torch.Tensor) -> tuple[int, int]:
+    """``(nseries, ndf)`` of a 3-D rows block the kernels can index."""
     nseries, ndf, lanes = x3.shape
     if lanes != P.ROW_LANES:
         raise ValueError(f"series rows need {P.ROW_LANES} lanes per frame, "
                          f"got {lanes}")
-    out = _launch("rows", x3, (nseries, ndf), nseries // 2, nout,
-                  P.mean_divisor(ndf // nout) if mean else None)
-    launches["baseband2power_scrunch_rows_cuda"] += 1
+    return nseries, ndf
+
+
+def baseband2stokes_scrunch_cuda(block2d: torch.Tensor, nout: int,
+                                 mean: bool = False) -> torch.Tensor:
+    """Wire block ``(ndf, nchk * 3584) int16`` -> ``(nout, 4, nchk * 7)``
+    float32, rows I, Q, U, V (port of ``baseband2stokes_scrunch_pallas``,
+    any ``nout`` dividing ``ndf``)."""
+    ndf, nchk = P.wire_geometry(block2d, nout)
+    if _on_cpu(block2d):
+        return P.baseband2stokes_scrunch_2d(block2d, nout, mean=mean)
+    out = _launch("stokes", "wire", block2d, (ndf, nchk),
+                  (nout, 4, nchk * NCHAN_CHK),
+                  P.stokes_mean_divisor(ndf // nout) if mean else None)
+    launches["baseband2stokes_scrunch_cuda"] += 1
+    return out
+
+
+def baseband2stokes_cuda(block2d: torch.Tensor,
+                         mean: bool = False) -> torch.Tensor:
+    """Wire block ``(ndf, nchk * 3584) int16`` -> ``(4, nchk * 7)`` float32,
+    rows I, Q, U, V (port of ``baseband2stokes_pallas``)."""
+    ndf, nchk = P.wire_geometry(block2d, 1)
+    if _on_cpu(block2d):
+        return P.baseband2stokes_2d(block2d, mean=mean)
+    out = _launch("stokes", "wire", block2d, (ndf, nchk),
+                  (1, 4, nchk * NCHAN_CHK),
+                  P.stokes_mean_divisor(ndf) if mean else None)
+    launches["baseband2stokes_cuda"] += 1
+    return out[0]
+
+
+def baseband2stokes_scrunch_rows_cuda(rows: torch.Tensor, nout: int = 1,
+                                      mean: bool = False) -> torch.Tensor:
+    """Series rows ``(nseries, ndf, 256)`` (or 2-D ``(nseries, ndf * 256)``)
+    int16 -> ``(nout, 4, nseries / 2)`` float32, rows I, Q, U, V (port of
+    ``baseband2stokes_scrunch_rows_pallas``, both its tile classes)."""
+    x3 = P.rows_geometry(rows, nout)
+    if _on_cpu(rows):
+        return P.baseband2stokes_scrunch_rows(rows, nout, mean=mean)
+    nseries, ndf = _rows_dims(x3)
+    out = _launch("stokes", "rows", x3, (nseries, ndf),
+                  (nout, 4, nseries // 2),
+                  P.stokes_mean_divisor(ndf // nout) if mean else None)
+    launches["baseband2stokes_scrunch_rows_cuda"] += 1
     return out

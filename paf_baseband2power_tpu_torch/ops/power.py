@@ -1,17 +1,19 @@
-"""Plain PyTorch power path: unpack int16 baseband -> |x|^2 -> integrate.
+"""Plain PyTorch power path: unpack int16 baseband -> |x|^2 (or full
+Stokes) -> integrate.
 
 Counterparts of ``paf_baseband2power_tpu/ops/power.py`` with the same
 signatures, errors, output shapes, chunk-major channel order and ``mean``
-divisors (samples x 2 pols per window). They are the reference for the CUDA
-kernel in ``ops/cuda_power.py``: the CPU tests run them, and on the card
-they run only to check the kernel.
+divisors (samples x 2 pols per window for power, samples only for Stokes).
+They are the reference for the CUDA kernels in ``ops/cuda_power.py``: the
+CPU tests run them, and on the card they run only to check the kernels.
 
-Sums are exact: squares are accumulated in int64 (a channel sums at most
+Sums are exact: products are accumulated in int64 (a channel sums at most
 8192 * 128 * 2 * 2 terms of at most 2^30, below 2^52), converted to
 float64, divided there for ``mean``, and rounded once to float32. That is
-the arithmetic of ``ops/golden.py:baseband2power_golden``, so results are
-bit-identical to the float64 golden model. The frame axis is walked in
-slabs to bound the int64 temporaries.
+the arithmetic of ``ops/golden.py`` (``baseband2power_golden``,
+``baseband2stokes_golden``), whose float64 partial sums are all integers
+below 2^53, so results are bit-identical to the float64 golden model. The
+frame axis is walked in slabs to bound the int64 temporaries.
 """
 
 from __future__ import annotations
@@ -147,6 +149,82 @@ def baseband2power_scrunch_rows(rows: torch.Tensor, nout: int = 1,
     power = (per_frame.reshape(nseries // NPOL_SAMP, NPOL_SAMP, nout, ndf_w)
              .sum(dim=(1, 3)).T)
     return _finish(power, ndf_w * lanes // 2 * NPOL_SAMP if mean else None)
+
+
+def stokes_mean_divisor(ndf_w: int) -> int:
+    """Samples integrated into one Stokes ``mean`` output of a window of
+    ``ndf_w`` frames: no pol factor, the Stokes convention."""
+    return ndf_w * NSAMP_DF
+
+
+def _stokes_terms(xr, xi, yr, yi, dim) -> torch.Tensor:
+    """int64 ``|x|^2, |y|^2, Re(x y*), Im(x y*)`` summed over ``dim``,
+    stacked on a new leading axis."""
+    return torch.stack([(xr * xr + xi * xi).sum(dim=dim),
+                        (yr * yr + yi * yi).sum(dim=dim),
+                        (xr * yr + xi * yi).sum(dim=dim),
+                        (xi * yr - xr * yi).sum(dim=dim)])
+
+
+def _finish_stokes(terms: torch.Tensor, divisor: int | None) -> torch.Tensor:
+    """``(nout, 4, nchan)`` int64 ``xx, yy, re, im`` -> I, Q, U, V float32,
+    formed exactly in int64 (Q, U and V are signed)."""
+    xx, yy, re, im = terms.unbind(dim=1)
+    return _finish(torch.stack([xx + yy, xx - yy, 2 * re, 2 * im], dim=1),
+                   divisor)
+
+
+def baseband2stokes_scrunch_2d(block2d: torch.Tensor, nout: int,
+                               mean: bool = False) -> torch.Tensor:
+    """Wire block ``(ndf, nchk * 3584) int16`` -> ``(nout, 4, nchk * 7)``
+    float32, rows I, Q, U, V: each of ``nout`` equal frame windows
+    integrated on its own."""
+    ndf, nchk = wire_geometry(block2d, nout)
+    nchan = nchk * NCHAN_CHK
+    per_frame = torch.empty((ndf, 4, nchan), dtype=torch.int64,
+                            device=block2d.device)
+    step = _slab(block2d.shape[1])
+    for f0 in range(0, ndf, step):
+        # lanes within a chunk: [sample, chan, pol, dim]
+        v = (block2d[f0:f0 + step].to(torch.int64)
+             .reshape(-1, nchk, NSAMP_DF, NCHAN_CHK, NPOL_SAMP, NDIM_POL))
+        terms = _stokes_terms(v[..., 0, 0], v[..., 0, 1], v[..., 1, 0],
+                              v[..., 1, 1], dim=2)      # (4, f, nchk, 7)
+        per_frame[f0:f0 + step] = terms.reshape(4, -1, nchan).transpose(0, 1)
+    ndf_w = ndf // nout
+    terms = per_frame.reshape(nout, ndf_w, 4, nchan).sum(dim=1)
+    return _finish_stokes(terms, stokes_mean_divisor(ndf_w) if mean else None)
+
+
+def baseband2stokes_2d(block2d: torch.Tensor,
+                       mean: bool = False) -> torch.Tensor:
+    """Wire block ``(ndf, nchk * 3584) int16`` -> ``(4, nchk * 7)`` float32,
+    rows I, Q, U, V."""
+    return baseband2stokes_scrunch_2d(block2d, 1, mean=mean)[0]
+
+
+def baseband2stokes_scrunch_rows(rows: torch.Tensor, nout: int = 1,
+                                 mean: bool = False) -> torch.Tensor:
+    """Series-row block, 3-D ``(nseries, ndf, 256)`` or 2-D
+    ``(nseries, ndf * 256)`` int16 -> ``(nout, 4, nseries / 2)`` float32,
+    rows I, Q, U, V. Series ``2k`` and ``2k + 1`` are channel ``k``'s x and
+    y, with re and im interleaved on lanes."""
+    x3 = rows_geometry(rows, nout)
+    nseries, ndf, lanes = x3.shape
+    nchan = nseries // NPOL_SAMP
+    per_frame = torch.empty((4, nchan, ndf), dtype=torch.int64,
+                            device=rows.device)
+    step = _slab(nseries * lanes)
+    for f0 in range(0, ndf, step):
+        v = (x3[:, f0:f0 + step].to(torch.int64)
+             .reshape(nchan, NPOL_SAMP, -1, lanes // 2, 2))
+        per_frame[:, :, f0:f0 + step] = _stokes_terms(
+            v[:, 0, ..., 0], v[:, 0, ..., 1], v[:, 1, ..., 0],
+            v[:, 1, ..., 1], dim=2)                     # (4, nchan, f)
+    ndf_w = ndf // nout
+    terms = per_frame.reshape(4, nchan, nout, ndf_w).sum(dim=3)
+    return _finish_stokes(terms.permute(2, 0, 1),
+                          stokes_mean_divisor(ndf_w) if mean else None)
 
 
 def power_step(block: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,12 @@
 """Streaming executor of the port: source -> pinned staging -> H2D ->
-power kernel -> D2H -> sink, on one explicit ``torch.device``.
+detection kernel -> D2H -> sink, on one explicit ``torch.device``.
 
 Counterpart of ``paf_baseband2power_tpu/runtime/pipeline.py`` for the
-direct-power modes (wire or series rows, ``nout`` >= 1, ``mean``):
+direct-detection modes (power or full Stokes, wire or series rows,
+``nout`` >= 1, ``mean``):
 
     host source  ->  copy into a pinned slot  ->  H2D on a copy stream
-                 ->  power kernel on the current stream  ->  D2H (async)
+                 ->  detection kernel on the current stream  ->  D2H (async)
                  ->  bounded in-flight queue  ->  sink
 
 ``depth`` bounds the blocks in flight, the role of the ring's NBLK: there
@@ -46,7 +47,7 @@ class PipelineStats:
     nbytes_out: int = 0
     ndf: int = 0                     # frames per block (from the stream)
     elapsed: float = 0.0
-    kernel_launches: int = 0         # power kernel launches during the run
+    kernel_launches: int = 0         # kernel launches during the run
     block_seconds: list = dataclasses.field(default_factory=list)
 
     @property
@@ -195,10 +196,12 @@ class _Staging:
 
 
 class PowerPipeline:
-    """Run source -> power step on ``device`` -> sink with bounded overlap.
+    """Run source -> detection step on ``device`` -> sink with bounded
+    overlap.
 
     On a CUDA device every block goes through the CUDA kernels of
     ``ops/cuda_power.py``; on the CPU through their plain versions.
+    ``stokes`` records I, Q, U, V per channel instead of total power.
     """
 
     def __init__(self, device: torch.device | str, mean: bool = False,
@@ -206,10 +209,6 @@ class PowerPipeline:
                  log_dir: str | None = None, nout: int = 1,
                  device_layout: bool = False, stokes: bool = False,
                  pfb_nfft: int = 0):
-        if stokes:
-            raise NotImplementedError(
-                "full-Stokes detection is not ported yet "
-                "(ROADMAP A8, kernels K5-K8)")
         if pfb_nfft:
             raise NotImplementedError(
                 "the PFB spectrometer is not ported yet "
@@ -219,18 +218,25 @@ class PowerPipeline:
         self.device = torch.device(device)
         self._mean, self._nout = mean, nout
         self._device_layout = device_layout
+        self._stokes = stokes
         self._depth = max(1, depth)
         self.log = open_log(name, log_dir)
 
     def power(self, x: torch.Tensor) -> torch.Tensor:
-        """One block's record: ``(nchan,)`` or ``(nout, nchan)`` float32."""
+        """One block's record: ``(nchan,)`` or ``(nout, nchan)`` float32,
+        with Stokes ``(4, nchan)`` or ``(nout, 4, nchan)``."""
+        nout, mean, stokes = self._nout, self._mean, self._stokes
         if self._device_layout:
-            out = CP.baseband2power_scrunch_rows_cuda(x, self._nout,
-                                                      mean=self._mean)
-            return out[0] if self._nout == 1 else out
-        if self._nout == 1:
-            return CP.baseband2power_cuda(x, mean=self._mean)
-        return CP.baseband2power_scrunch_cuda(x, self._nout, mean=self._mean)
+            fn = (CP.baseband2stokes_scrunch_rows_cuda if stokes
+                  else CP.baseband2power_scrunch_rows_cuda)
+            out = fn(x, nout, mean=mean)
+            return out[0] if nout == 1 else out
+        if nout == 1:
+            fn = CP.baseband2stokes_cuda if stokes else CP.baseband2power_cuda
+            return fn(x, mean=mean)
+        fn = (CP.baseband2stokes_scrunch_cuda if stokes
+              else CP.baseband2power_scrunch_cuda)
+        return fn(x, nout, mean=mean)
 
     def warmup(self, ndf: int, nchk: int = C.NCHK_NIC) -> float:
         """Build and load the kernels and launch them once on zeros made on
@@ -245,8 +251,10 @@ class PowerPipeline:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         dt = time.perf_counter() - t0
-        self.log.info("warmup: built and ran the power step for (%d, %d) "
-                      "on %s in %.2f s", ndf, nchk, self.device, dt)
+        self.log.info("warmup: built and ran the %s step for (%d, %d) "
+                      "on %s in %.2f s",
+                      "Stokes" if self._stokes else "power", ndf, nchk,
+                      self.device, dt)
         return dt
 
     def run(self, source: Iterable[np.ndarray], sink) -> PipelineStats:
@@ -255,9 +263,9 @@ class PowerPipeline:
         inflight: collections.deque = collections.deque()  # (host, event)
         launches0 = sum(CP.launches.values())
         t_start = t_block = time.perf_counter()
-        self.log.info("pipeline start: device=%s depth=%d nout=%d layout=%s",
-                      self.device, self._depth, self._nout,
-                      "rows" if self._device_layout else "wire")
+        self.log.info("pipeline start: device=%s depth=%d nout=%d layout=%s "
+                      "stokes=%s", self.device, self._depth, self._nout,
+                      "rows" if self._device_layout else "wire", self._stokes)
 
         def drain_one():
             nonlocal t_block
@@ -266,7 +274,8 @@ class PowerPipeline:
                 ready.synchronize()
             row = host.numpy()
             if debug.debug_enabled():
-                debug.check_power(row, stats.nblocks)
+                # Q, U and V are legitimately negative
+                debug.check_power(row, stats.nblocks, signed=self._stokes)
                 self.log.info("block %d ok: sum=%.6g max=%.6g",
                               stats.nblocks, row.sum(), row.max())
             sink.write(row)

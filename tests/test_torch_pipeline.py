@@ -1,7 +1,9 @@
-"""The port's executor and CLI on the CPU (``--platform cpu``): records
-bit-equal to the float64 golden model and within rtol 1e-5 of the JAX
-CLI on the same input (float32 accumulation on the JAX side), ring input,
-staging, and the guarantee that the port never imports jax."""
+"""The port's executor and CLI on the CPU (``--platform cpu``): power and
+full-Stokes records bit-equal to the float64 golden model and within
+tolerance of the JAX CLI on the same input (power: rtol 1e-5; Stokes:
+``assert_close`` of ``tests/test_torch_stokes.py``; both from float32
+accumulation on the JAX side), ring input, staging, and the guarantee that
+the port never imports jax."""
 
 import json
 import os
@@ -22,6 +24,7 @@ from paf_baseband2power_tpu.ops import frame as F
 from paf_baseband2power_tpu.ops.golden import (
     baseband2power_golden,
     baseband2power_scrunch_golden,
+    baseband2stokes_scrunch_golden,
 )
 from paf_baseband2power_tpu.runtime import debug
 from paf_baseband2power_tpu_torch.cli import paf_baseband2power as cli
@@ -40,9 +43,12 @@ def _gen(path, layout="wire", nblocks=2, seed=9, ndf=NDF, nchk=NCHK):
     assert paf_gen.main(args) == 0
 
 
-def _records(path, nout=1, nchk=NCHK):
-    shape = (nchk * C.NCHAN_CHK,) if nout == 1 else (nout,
-                                                     nchk * C.NCHAN_CHK)
+def _records(path, nout=1, nchk=NCHK, stokes=False):
+    shape = (nchk * C.NCHAN_CHK,)
+    if stokes:
+        shape = (4,) + shape
+    if nout > 1:
+        shape = (nout,) + shape
     with DadaFileReader(str(path)) as r:
         return r.header, [np.frombuffer(b, "<f4").reshape(shape)
                           for b in r.blocks(int(np.prod(shape)) * 4)]
@@ -107,7 +113,8 @@ def test_diskdb_ring_to_port_cli(tmp_path, layout):
 
 
 def test_port_never_imports_jax(tmp_path):
-    """The port's CPU path, every module of it, runs without jax."""
+    """The port's CPU paths, power and Stokes, every module of them, run
+    without jax."""
     code = (
         "import sys\n"
         "import paf_baseband2power_tpu_torch.ops.power\n"
@@ -117,6 +124,10 @@ def test_port_never_imports_jax(tmp_path):
         f"rc = paf_baseband2power.main(['-a', 'synthetic:2', '-b', "
         f"{str(tmp_path / 'pw.dada')!r}, '--ndf', '16', '--nchk', '4', "
         "'--nspectra', '2', '--platform', 'cpu'])\n"
+        "assert rc == 0\n"
+        f"rc = paf_baseband2power.main(['-a', 'synthetic:2', '-b', "
+        f"{str(tmp_path / 'st.dada')!r}, '--ndf', '16', '--nchk', '4', "
+        "'--stokes', '--platform', 'cpu'])\n"
         "assert rc == 0\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] == 'jax'))\n"
     )
@@ -177,26 +188,79 @@ def test_staging_rejects_shape_change():
         staging.put(np.zeros((4, 16), np.int16))
 
 
-@pytest.mark.parametrize("kw,item", [({"stokes": True}, "A8"),
+@pytest.mark.parametrize("kw,item", [({"stokes": True, "pfb_nfft": 128},
+                                      "A9"),
                                      ({"pfb_nfft": 128}, "A9")])
 def test_pipeline_unported_modes_raise(kw, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         RP.PowerPipeline("cpu", **kw)
 
 
+@pytest.mark.parametrize("stokes", [False, True])
 @pytest.mark.parametrize("layout", [False, True])
-def test_warmup_runs_on_device_zeros(layout):
-    pipe = RP.PowerPipeline("cpu", device_layout=layout, nout=4)
+def test_warmup_runs_on_device_zeros(layout, stokes):
+    pipe = RP.PowerPipeline("cpu", device_layout=layout, nout=4,
+                            stokes=stokes)
     assert pipe.warmup(NDF, 4) >= 0
 
 
-@pytest.mark.parametrize("flags", [["--stokes"], ["--pfb", "128"]])
+@pytest.mark.parametrize("nout", [1, 4])
+@pytest.mark.parametrize("layout", ["wire", "rows"])
+def test_pipeline_stokes_bit_equal_golden(layout, nout, monkeypatch):
+    """Stokes records, ``(4, nchan)`` or ``(nout, 4, nchan)``, with the
+    per-block check on: Q, U and V are negative and must pass it."""
+    monkeypatch.setattr(debug, "_DEBUG", True)
+    blocks = [F.synthetic_block(rng=70 + i, ndf=NDF, nchk=4)
+              for i in range(2)]
+    if layout == "rows":
+        src = [F.block_to_rows(b).reshape(4 * 14, -1) for b in blocks]
+    else:
+        src = [b.reshape(NDF, -1) for b in blocks]
+    sink = RP.MemorySink()
+    stats = RP.PowerPipeline("cpu", nout=nout, stokes=True,
+                             device_layout=layout == "rows").run(src, sink)
+    assert stats.nblocks == 2
+    assert stats.nbytes_out == 2 * nout * 4 * 4 * C.NCHAN_CHK * 4
+    for b, rec in zip(blocks, sink.records):
+        want = baseband2stokes_scrunch_golden(b, nout)
+        assert (want[:, 1:] < 0).any()
+        np.testing.assert_array_equal(rec, want[0] if nout == 1 else want)
+
+
+@pytest.mark.parametrize("nspectra", [1, 4])
+@pytest.mark.parametrize("layout", ["wire", "rows"])
+def test_cli_stokes_matches_golden_and_jax_cli(tmp_path, layout, nspectra):
+    nchk = 4
+    inp = str(tmp_path / "bb.dada")
+    _gen(inp, layout=layout, seed=11, nchk=nchk)
+    common = ["-a", inp, "--ndf", str(NDF), "--nchk", str(nchk),
+              "--nspectra", str(nspectra), "--stokes"]
+    port_out, jax_out = tmp_path / "port.dada", tmp_path / "jax.dada"
+    assert cli.main(common + ["-b", str(port_out), "--platform", "cpu"]) == 0
+    assert jax_cli.main(common + ["-b", str(jax_out)]) == 0
+    hdr, got = _records(port_out, nspectra, nchk=nchk, stokes=True)
+    jhdr, want_jax = _records(jax_out, nspectra, nchk=nchk, stokes=True)
+    assert hdr == jhdr
+    assert hdr["NPOL"] == "4" and hdr["STOKES"] == "IQUV"
+    assert len(got) == len(want_jax) == 2
+    for i, rec in enumerate(got):
+        want = baseband2stokes_scrunch_golden(
+            F.synthetic_block(rng=11 + i, ndf=NDF, nchk=nchk), nspectra)
+        np.testing.assert_array_equal(rec, want[0] if nspectra == 1
+                                      else want)
+        atol = 1e-5 * float(np.abs(want_jax[i]).max())
+        np.testing.assert_allclose(rec, want_jax[i], rtol=2e-4, atol=atol)
+
+
+@pytest.mark.parametrize("flags", [["--stokes", "--pfb", "128"],
+                                   ["--pfb", "128"]])
 def test_cli_unported_flags_exit(tmp_path, flags, capsys):
     with pytest.raises(SystemExit) as e:
         cli.main(["-a", "synthetic:1", "-b", str(tmp_path / "x.dada"),
                   "--platform", "cpu"] + flags)
     assert e.value.code != 0
-    assert "not yet ported" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "not yet ported" in err and "A9" in err
 
 
 def test_cli_cuda_platform_without_gpu_fails(tmp_path, capsys):

@@ -336,7 +336,9 @@ def _fake_nvcc(path, body):
 
 def test_package_sources_are_found():
     names = [os.path.basename(s) for s in _build.sources(_build.CSRC_DIR)]
-    assert "power.cu" in names
+    assert "power.cu" in names and "stokes.cu" in names
+    assert [os.path.basename(h) for h in _build.headers(_build.CSRC_DIR)] \
+        == ["geometry.cuh"]
 
 
 def test_source_hash_follows_sources(tmp_path):
@@ -379,3 +381,47 @@ def test_build_names_library_by_source_hash(tmp_path):
     src.write_text("// v2\n")
     with pytest.raises(RuntimeError):
         _build.build(str(tmp_path), str(out), nvcc=bad)
+
+
+def test_build_compiles_sources_in_parallel_then_links(tmp_path):
+    """One ``nvcc -c`` per source, all running at once (each compile waits
+    until every compile has started, so a serial build would fail), then
+    one ``-shared`` link of all the objects."""
+    src = tmp_path / "src"
+    src.mkdir()
+    for name in ("a.cu", "b.cu"):
+        (src / name).write_text(f"// {name}\n")
+    log, started = tmp_path / "log", tmp_path / "started"
+    started.mkdir()
+    nvcc = _fake_nvcc(tmp_path / "nvcc", f"""echo "$@" >> {log}
+case " $* " in *" -c "*)
+  for a; do last=$a; done
+  touch {started}/$(basename $last)
+  i=0
+  while [ $(ls {started} | wc -l) -lt 2 ]; do
+    i=$((i + 1)); [ $i -gt 100 ] && exit 1; sleep 0.1
+  done;;
+esac
+while [ "$1" != "-o" ]; do shift; done
+echo lib > "$2"
+""")
+    lib = _build.build(str(src), str(tmp_path / "b"), nvcc=nvcc)
+    calls = log.read_text().splitlines()
+    compiles = [c for c in calls if " -c " in c]
+    assert sorted(c.split()[-1] for c in compiles) == [
+        str(src / "a.cu"), str(src / "b.cu")]
+    assert "-shared" in calls[-1] and len(calls) == 3
+    assert calls[-1].count(".o") == 2
+    assert os.listdir(tmp_path / "b") == [os.path.basename(lib)]
+
+
+def test_build_hash_follows_headers(tmp_path):
+    (tmp_path / "k.cu").write_text('#include "g.cuh"\n')
+    (tmp_path / "g.cuh").write_text("// v1\n")
+    nvcc = _fake_nvcc(tmp_path / "nvcc",
+                      'while [ "$1" != "-o" ]; do shift; done\n'
+                      'echo lib > "$2"\n')
+    lib1 = _build.build(str(tmp_path), str(tmp_path / "b"), nvcc=nvcc)
+    (tmp_path / "g.cuh").write_text("// v2\n")
+    lib2 = _build.build(str(tmp_path), str(tmp_path / "b"), nvcc=nvcc)
+    assert lib1 != lib2
