@@ -7,7 +7,8 @@ reference it is tested against). The port imports ``torch`` and never
 DADA and ring-buffer I/O, frame codec, golden model, logging) as they are.
 
 Layers:
-    ops/       plain PyTorch power path and the CUDA kernel bindings
+    ops/       plain PyTorch power, Stokes and PFB paths and the CUDA kernel
+               bindings
     csrc/      hand-written CUDA kernels (sm_90a), built with nvcc at first use
     runtime/   streaming executor (pinned staging, H2D, kernel, sink)
     cli/       paf_baseband2power entry point

@@ -1,14 +1,19 @@
 """CLI: the compute stage on PyTorch and CUDA (reference parity:
 ``paf_baseband2power``).
 
-Flags of the JAX package's CLI for direct detection (power or ``--stokes``):
+Flags of the JAX package's CLI:
   -a  input: a .dada file, a ring key (``ring:KEY`` or a bare hex key),
       or ``synthetic[:N]``
   -b  output: a .dada file or ring key
   -c  directory for runtime logs
   -d  CUDA device ordinal
-plus ``--platform {cuda,cpu}``: ``cuda`` (the default) runs the CUDA
-kernels and fails without a GPU; ``cpu`` runs their plain PyTorch versions.
+Modes: total power (default) or ``--stokes`` (I, Q, U, V records), either
+one per channel or, with ``--pfb NFFT`` (``--ntap``, ``--window``), per
+fine channel of a polyphase filterbank, the overlap-save carry kept on the
+device across blocks; each with ``--nspectra`` spectra per block and
+``--mean``, from wire or ``ORDER SERIES`` (rows) input.
+``--platform {cuda,cpu}``: ``cuda`` (the default) runs the CUDA kernels and
+fails without a GPU; ``cpu`` runs their plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -75,7 +80,12 @@ def main(argv=None) -> int:
                     help="full-Stokes detection (I,Q,U,V per channel; "
                     "NPOL 4 records) instead of total power")
     ap.add_argument("--pfb", type=int, default=0, metavar="NFFT",
-                    help="polyphase filterbank channelizer (not yet ported)")
+                    help="channelize with an NFFT-point polyphase "
+                    "filterbank before detection (the CUDA kernel takes "
+                    "powers of two 2..1024; ORDER SERIES input 128..1024)")
+    ap.add_argument("--ntap", type=int, default=4, help="PFB taps")
+    ap.add_argument("--window", default="hamming",
+                    choices=["hamming", "hanning", "rect"])
     ap.add_argument("--stats-json", action="store_true",
                     help="print run statistics as JSON")
     ap.add_argument("--profile", metavar="DIR", default=None,
@@ -91,8 +101,6 @@ def main(argv=None) -> int:
                     "boundary, discarding pre-SOD blocks")
     args = ap.parse_args(argv)
 
-    if args.pfb:
-        ap.error("not yet ported: --pfb (ROADMAP A9)")
     if args.platform == "cuda":
         if not torch.cuda.is_available():
             ap.error("--platform cuda: no CUDA device is available "
@@ -109,6 +117,7 @@ def main(argv=None) -> int:
     from paf_baseband2power_tpu.io.dada import output_header
     from paf_baseband2power_tpu.runtime.debug import set_debug
 
+    from ..ops.pfb import check_rows_nfft
     from ..runtime.pipeline import (
         FileSink,
         FileSource,
@@ -143,15 +152,25 @@ def main(argv=None) -> int:
         in_header = source.header
         args.device_layout = source.layout == "rows"
 
+    if args.pfb and args.device_layout:
+        try:
+            check_rows_nfft(args.pfb)
+        except ValueError as e:
+            ap.error(str(e))
+
     # --- sink -------------------------------------------------------------
     hdr = output_header(
         utc_start=(in_header or {}).get("UTC_START", "unset"),
         picoseconds=(in_header or {}).get("PICOSECONDS", "unset"),
         freq=(in_header or {}).get("FREQ", "unset"),
         bw=(in_header or {}).get("BW", "unset"),
-        nchan=args.nchk * C.NCHAN_CHK,
+        nchan=args.nchk * C.NCHAN_CHK * (args.pfb or 1),
         tint_sec=args.ndf * C.TDF_SEC,   # = TINT at the standard 8192
     )
+    if args.pfb:
+        hdr["PFB_NFFT"] = str(args.pfb)
+        hdr["PFB_NTAP"] = str(args.ntap)
+        hdr["PFB_WINDOW"] = args.window
     if args.stokes:
         # full-Stokes records: 4 x nchan float32 per spectrum, I/Q/U/V rows
         hdr["NPOL"] = "4"
@@ -174,7 +193,8 @@ def main(argv=None) -> int:
     pipe = PowerPipeline(device, mean=args.mean, depth=args.depth,
                          log_dir=args.dir, nout=args.nspectra,
                          device_layout=args.device_layout,
-                         stokes=args.stokes)
+                         stokes=args.stokes, pfb_nfft=args.pfb,
+                         pfb_ntap=args.ntap, pfb_window=args.window)
     if not args.no_warmup:
         pipe.warmup(args.ndf, args.nchk)
     with profile_trace(args.profile, device):

@@ -121,7 +121,12 @@ def load_library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(build())
             i64, ptr, f64 = ctypes.c_int64, ctypes.c_void_p, ctypes.c_double
+            i32 = ctypes.c_int
             sigs = {
+                "pafb2p_pfb": [ptr, i32, i64, i64, i64, i64, i64, i32, ptr,
+                               ptr, i64, i64, ptr, ptr],
+                "pafb2p_pfb_finish": [ptr, ptr, i64, i64, i64, i64, i64, i32,
+                                      f64, f64, ptr],
                 "pafb2p_power_wire": [ptr, i64, i64, i64, ptr, ptr],
                 "pafb2p_power_rows": [ptr, i64, i64, i64, ptr, ptr],
                 "pafb2p_power_finish": [ptr, ptr, i64, i64, f64, ptr],

@@ -1,9 +1,10 @@
 """Streaming executor of the port: source -> pinned staging -> H2D ->
 detection kernel -> D2H -> sink, on one explicit ``torch.device``.
 
-Counterpart of ``paf_baseband2power_tpu/runtime/pipeline.py`` for the
-direct-detection modes (power or full Stokes, wire or series rows,
-``nout`` >= 1, ``mean``):
+Counterpart of ``paf_baseband2power_tpu/runtime/pipeline.py`` for direct
+detection (power or full Stokes, wire or series rows, ``nout`` >= 1,
+``mean``) and the PFB spectrometer (``pfb_nfft``, with the same options),
+whose overlap-save carry stays on the device from one block to the next:
 
     host source  ->  copy into a pinned slot  ->  H2D on a copy stream
                  ->  detection kernel on the current stream  ->  D2H (async)
@@ -13,8 +14,10 @@ direct-detection modes (power or full Stokes, wire or series rows,
 are ``depth`` pinned host slots and ``depth`` device slots. A pinned slot
 is refilled only after the event of its last H2D copy has completed, and a
 device slot is overwritten only after the event of the kernel that read it,
-so no block is overwritten while still in flight. On the CPU the same loop
-runs the plain PyTorch version with no copies.
+so no block is overwritten while still in flight. The PFB carry is a tensor
+of its own (``ops/pfb.py:pfb_history``), never a view of a slot, so the
+next block's kernel reads it whatever ``depth`` is. On the CPU the same
+loop runs the plain PyTorch version with no copies.
 """
 
 from __future__ import annotations
@@ -37,7 +40,9 @@ from paf_baseband2power_tpu.io.dada import (
 from paf_baseband2power_tpu.runtime import debug
 from paf_baseband2power_tpu.runtime.log import open_log
 
+from ..ops import cuda_pfb as CPF
 from ..ops import cuda_power as CP
+from ..ops import pfb as PF
 
 
 @dataclasses.dataclass
@@ -200,19 +205,18 @@ class PowerPipeline:
     overlap.
 
     On a CUDA device every block goes through the CUDA kernels of
-    ``ops/cuda_power.py``; on the CPU through their plain versions.
-    ``stokes`` records I, Q, U, V per channel instead of total power.
+    ``ops/cuda_power.py`` and ``ops/cuda_pfb.py``; on the CPU through their
+    plain versions. ``stokes`` records I, Q, U, V per channel instead of
+    total power. ``pfb_nfft`` channelizes each coarse channel into that
+    many fine channels first (``pfb_ntap`` taps, ``pfb_window``).
     """
 
     def __init__(self, device: torch.device | str, mean: bool = False,
                  depth: int = 2, name: str = "baseband2power",
                  log_dir: str | None = None, nout: int = 1,
                  device_layout: bool = False, stokes: bool = False,
-                 pfb_nfft: int = 0):
-        if pfb_nfft:
-            raise NotImplementedError(
-                "the PFB spectrometer is not ported yet "
-                "(ROADMAP A9, kernels K9-K10)")
+                 pfb_nfft: int = 0, pfb_ntap: int = 4,
+                 pfb_window: str = "hamming"):
         if nout < 1:
             raise ValueError(f"nout={nout} must be >= 1")
         self.device = torch.device(device)
@@ -220,12 +224,32 @@ class PowerPipeline:
         self._device_layout = device_layout
         self._stokes = stokes
         self._depth = max(1, depth)
+        self._pfb = None
+        if pfb_nfft:
+            if device_layout:
+                PF.check_rows_nfft(pfb_nfft)
+            kw = dict(window=pfb_window, mean=mean,
+                      layout="rows" if device_layout else "wire")
+            if nout == 1 and not stokes:
+                self._pfb = PF.make_streaming_pfb(
+                    pfb_nfft, pfb_ntap, power=CPF.pfb_power_cuda, **kw)
+            else:
+                self._pfb = PF.make_streaming_spectra(
+                    pfb_nfft, pfb_ntap, nout=nout, stokes=stokes,
+                    spectra=CPF.pfb_spectra_cuda, **kw)
+        self._carry = None
         self.log = open_log(name, log_dir)
 
     def power(self, x: torch.Tensor) -> torch.Tensor:
         """One block's record: ``(nchan,)`` or ``(nout, nchan)`` float32,
-        with Stokes ``(4, nchan)`` or ``(nout, 4, nchan)``."""
+        with Stokes ``(4, nchan)`` or ``(nout, 4, nchan)``. With the PFB,
+        ``nchan`` counts fine channels, Stokes keeps its ``nout`` axis
+        (``(1, 4, nchan)`` at ``nout = 1``, as in the JAX package), and
+        each call continues the stream from the previous block's carry."""
         nout, mean, stokes = self._nout, self._mean, self._stokes
+        if self._pfb is not None:
+            out, self._carry = self._pfb(x, self._carry)
+            return out
         if self._device_layout:
             fn = (CP.baseband2stokes_scrunch_rows_cuda if stokes
                   else CP.baseband2power_scrunch_rows_cuda)
@@ -247,25 +271,37 @@ class PowerPipeline:
             shape = (nchk * C.NCHAN_CHK * C.NPOL_SAMP, ndf, 2 * C.NSAMP_DF)
         else:
             shape = (ndf, nchk * C.DT_SIZE // 2)
-        self.power(torch.zeros(shape, dtype=torch.int16, device=self.device))
+        zeros = torch.zeros(shape, dtype=torch.int16, device=self.device)
+        self.power(zeros)
+        if self._pfb is not None:
+            # the step with a carry as well; the stream starts without one
+            self.power(zeros)
+            self._carry = None
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         dt = time.perf_counter() - t0
         self.log.info("warmup: built and ran the %s step for (%d, %d) "
                       "on %s in %.2f s",
-                      "Stokes" if self._stokes else "power", ndf, nchk,
+                      self._mode(), ndf, nchk,
                       self.device, dt)
         return dt
 
+    def _mode(self) -> str:
+        mode = "Stokes" if self._stokes else "power"
+        return f"PFB {mode}" if self._pfb is not None else mode
+
     def run(self, source: Iterable[np.ndarray], sink) -> PipelineStats:
+        """Stream every block of ``source`` to ``sink``; a PFB stream starts
+        without a carry."""
         stats = PipelineStats()
+        self._carry = None
         staging: _Staging | None = None
         inflight: collections.deque = collections.deque()  # (host, event)
         launches0 = sum(CP.launches.values())
         t_start = t_block = time.perf_counter()
         self.log.info("pipeline start: device=%s depth=%d nout=%d layout=%s "
-                      "stokes=%s", self.device, self._depth, self._nout,
-                      "rows" if self._device_layout else "wire", self._stokes)
+                      "mode=%s", self.device, self._depth, self._nout,
+                      "rows" if self._device_layout else "wire", self._mode())
 
         def drain_one():
             nonlocal t_block

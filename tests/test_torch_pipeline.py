@@ -2,8 +2,10 @@
 full-Stokes records bit-equal to the float64 golden model and within
 tolerance of the JAX CLI on the same input (power: rtol 1e-5; Stokes:
 ``assert_close`` of ``tests/test_torch_stokes.py``; both from float32
-accumulation on the JAX side), ring input, staging, and the guarantee that
-the port never imports jax."""
+accumulation on the JAX side); PFB records within 2e-5 (peak-normalized)
+of the golden over the whole stream and within that ``assert_close`` of
+the JAX CLI; ring input, staging, and the guarantee that the port never
+imports jax."""
 
 import json
 import os
@@ -26,6 +28,7 @@ from paf_baseband2power_tpu.ops.golden import (
     baseband2power_scrunch_golden,
     baseband2stokes_scrunch_golden,
 )
+from paf_baseband2power_tpu.ops.pfb import pfb_spectra_golden
 from paf_baseband2power_tpu.runtime import debug
 from paf_baseband2power_tpu_torch.cli import paf_baseband2power as cli
 from paf_baseband2power_tpu_torch.runtime import pipeline as RP
@@ -113,12 +116,14 @@ def test_diskdb_ring_to_port_cli(tmp_path, layout):
 
 
 def test_port_never_imports_jax(tmp_path):
-    """The port's CPU paths, power and Stokes, every module of them, run
-    without jax."""
+    """The port's CPU paths, power, Stokes and the PFB, every module of
+    them, run without jax."""
     code = (
         "import sys\n"
         "import paf_baseband2power_tpu_torch.ops.power\n"
         "import paf_baseband2power_tpu_torch.ops.cuda_power\n"
+        "import paf_baseband2power_tpu_torch.ops.pfb\n"
+        "import paf_baseband2power_tpu_torch.ops.cuda_pfb\n"
         "import paf_baseband2power_tpu_torch.runtime.pipeline\n"
         "from paf_baseband2power_tpu_torch.cli import paf_baseband2power\n"
         f"rc = paf_baseband2power.main(['-a', 'synthetic:2', '-b', "
@@ -128,6 +133,11 @@ def test_port_never_imports_jax(tmp_path):
         f"rc = paf_baseband2power.main(['-a', 'synthetic:2', '-b', "
         f"{str(tmp_path / 'st.dada')!r}, '--ndf', '16', '--nchk', '4', "
         "'--stokes', '--platform', 'cpu'])\n"
+        "assert rc == 0\n"
+        f"rc = paf_baseband2power.main(['-a', 'synthetic:2', '-b', "
+        f"{str(tmp_path / 'pfb.dada')!r}, '--ndf', '16', '--nchk', '4', "
+        "'--pfb', '32', '--stokes', '--nspectra', '2', "
+        "'--platform', 'cpu'])\n"
         "assert rc == 0\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] == 'jax'))\n"
     )
@@ -188,12 +198,14 @@ def test_staging_rejects_shape_change():
         staging.put(np.zeros((4, 16), np.int16))
 
 
-@pytest.mark.parametrize("kw,item", [({"stokes": True, "pfb_nfft": 128},
-                                      "A9"),
-                                     ({"pfb_nfft": 128}, "A9")])
+@pytest.mark.parametrize("kw,item", [({"stokes": True, "pfb_nfft": 64},
+                                      "64"),
+                                     ({"pfb_nfft": 2048}, "2048")])
 def test_pipeline_unported_modes_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        RP.PowerPipeline("cpu", **kw)
+    """Series-row blocks take the PFB at nfft 128-1024 only, as in the JAX
+    package (its fused kernel's sizes)."""
+    with pytest.raises(ValueError, match=f"device-layout PFB .* got {item}"):
+        RP.PowerPipeline("cpu", device_layout=True, **kw)
 
 
 @pytest.mark.parametrize("stokes", [False, True])
@@ -252,15 +264,21 @@ def test_cli_stokes_matches_golden_and_jax_cli(tmp_path, layout, nspectra):
         np.testing.assert_allclose(rec, want_jax[i], rtol=2e-4, atol=atol)
 
 
-@pytest.mark.parametrize("flags", [["--stokes", "--pfb", "128"],
-                                   ["--pfb", "128"]])
+@pytest.mark.parametrize("flags", [["--stokes", "--pfb", "64"],
+                                   ["--pfb", "2048"]])
 def test_cli_unported_flags_exit(tmp_path, flags, capsys):
+    """ORDER SERIES input with an nfft the rows path does not take: the
+    JAX package's message, before any output is written."""
+    bb, out = tmp_path / "bb.dada", tmp_path / "x.dada"
+    _gen(bb, layout="rows", nblocks=1, nchk=4)
+    capsys.readouterr()
     with pytest.raises(SystemExit) as e:
-        cli.main(["-a", "synthetic:1", "-b", str(tmp_path / "x.dada"),
-                  "--platform", "cpu"] + flags)
+        cli.main(["-a", str(bb), "-b", str(out), "--ndf", str(NDF),
+                  "--nchk", "4", "--platform", "cpu"] + flags)
     assert e.value.code != 0
     err = capsys.readouterr().err
-    assert "not yet ported" in err and "A9" in err
+    assert "device-layout PFB supports nfft in (128, 256, 512, 1024)" in err
+    assert not out.exists()
 
 
 def test_cli_cuda_platform_without_gpu_fails(tmp_path, capsys):
@@ -315,3 +333,94 @@ def test_file_source_layouts(tmp_path):
     assert [b.shape for b in src] == [(4 * 14, NDF * 256)]
     with pytest.raises(ValueError, match="unknown layout"):
         RP.FileSource(str(wire), ndf=NDF, nchk=4, layout="planes")
+
+
+def _pfb_golden_stream(seed, nblocks, nfft, nout, stokes, ndf=NDF,
+                       nchk=NCHK):
+    """The float64 golden over the whole stream of ``paf_gen`` blocks,
+    ``nout`` spectra per block: the records a carried stream must give."""
+    blocks = [F.synthetic_block(rng=seed + i, ndf=ndf, nchk=nchk)
+              for i in range(nblocks)]
+    want = pfb_spectra_golden(np.concatenate(blocks), nfft, 4,
+                              nout=nblocks * nout, stokes=stokes)
+    return [want[i * nout:(i + 1) * nout] for i in range(nblocks)]
+
+
+def _pfb_err(got, want) -> float:
+    return float(np.abs(got.astype(np.float64) - want).max()
+                 / np.abs(want).max())
+
+
+@pytest.mark.parametrize("layout,flags", [
+    ("wire", ["--pfb", "32"]),
+    ("wire", ["--pfb", "128", "--stokes", "--nspectra", "2"]),
+    ("rows", ["--pfb", "128"])])
+def test_cli_pfb_matches_golden_stream_and_jax_cli(tmp_path, layout, flags):
+    nchk, nfft = 2, int(flags[1])
+    stokes, nout = "--stokes" in flags, 2 if "--nspectra" in flags else 1
+    inp = str(tmp_path / "bb.dada")
+    _gen(inp, layout=layout, nblocks=3, seed=21, nchk=nchk)
+    common = ["-a", inp, "--ndf", str(NDF), "--nchk", str(nchk)] + flags
+    port_out, jax_out = tmp_path / "port.dada", tmp_path / "jax.dada"
+    assert cli.main(common + ["-b", str(port_out), "--platform", "cpu"]) == 0
+    assert jax_cli.main(common + ["-b", str(jax_out)]) == 0
+    shape = (nout,) + ((4,) if stokes else ()) + (nchk * C.NCHAN_CHK * nfft,)
+    with DadaFileReader(str(port_out)) as r, \
+            DadaFileReader(str(jax_out)) as q:
+        nbytes = int(np.prod(shape)) * 4
+        got = [np.frombuffer(b, "<f4").reshape(shape)
+               for b in r.blocks(nbytes)]
+        want_jax = [np.frombuffer(b, "<f4").reshape(shape)
+                    for b in q.blocks(nbytes)]
+        assert r.header == q.header
+        hdr = r.header
+    assert hdr.get_int("NCHAN") == nchk * C.NCHAN_CHK * nfft
+    assert hdr["PFB_NFFT"] == str(nfft) and hdr["PFB_NTAP"] == "4"
+    assert hdr["PFB_WINDOW"] == "hamming"
+    assert hdr["NPOL"] == ("4" if stokes else "1")
+    assert len(got) == len(want_jax) == 3
+    golden = _pfb_golden_stream(21, 3, nfft, nout, stokes, nchk=nchk)
+    for rec, jrec, want in zip(got, want_jax, golden):
+        assert _pfb_err(rec, want) < 2e-5
+        atol = 1e-5 * float(np.abs(jrec).max())
+        np.testing.assert_allclose(rec, jrec, rtol=2e-4, atol=atol)
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+@pytest.mark.parametrize("layout", ["wire", "rows"])
+def test_pipeline_pfb_carry_across_blocks(layout, depth):
+    """The carry is a tensor of its own: at depth 1 the next block is
+    staged into the same slot before the carry is read, and the stream
+    still equals the golden over all its blocks."""
+    blocks = [F.synthetic_block(rng=80 + i, ndf=NDF, nchk=4)
+              for i in range(3)]
+    if layout == "rows":
+        src = [F.block_to_rows(b).reshape(4 * 14, -1) for b in blocks]
+    else:
+        src = [b.reshape(NDF, -1) for b in blocks]
+    sink = RP.MemorySink()
+    pipe = RP.PowerPipeline("cpu", depth=depth, pfb_nfft=128,
+                            device_layout=layout == "rows")
+    pipe.warmup(NDF, 4)
+    stats = pipe.run(src, sink)
+    assert stats.nblocks == 3
+    assert stats.nbytes_out == 3 * 4 * C.NCHAN_CHK * 128 * 4
+    want = pfb_spectra_golden(np.concatenate(blocks), 128, 4, nout=3)
+    for rec, w in zip(sink.records, want):
+        assert rec.shape == (4 * C.NCHAN_CHK * 128,)
+        assert _pfb_err(rec, w) < 2e-5
+
+
+@pytest.mark.parametrize("stokes", [False, True])
+def test_pipeline_pfb_record_shapes_and_warmup(stokes, monkeypatch):
+    """Stokes keeps its spectra axis at nout 1 (as the JAX package's
+    streaming step does); the per-block check passes signed Q, U, V."""
+    monkeypatch.setattr(debug, "_DEBUG", True)
+    pipe = RP.PowerPipeline("cpu", pfb_nfft=64, pfb_ntap=2,
+                            pfb_window="rect", stokes=stokes, mean=True)
+    assert pipe.warmup(NDF, 4) >= 0
+    sink = RP.MemorySink()
+    pipe.run(RP.SyntheticSource(2, ndf=NDF, nchk=4, seed=3), sink)
+    shape = (1, 4, 4 * C.NCHAN_CHK * 64) if stokes else (4 * C.NCHAN_CHK
+                                                          * 64,)
+    assert [r.shape for r in sink.records] == [shape, shape]
