@@ -5,10 +5,16 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
+It imports nothing of JAX and nothing of the JAX package: every kernel is
+held against the port's own plain PyTorch version (int64, exact, for power
+and Stokes; float64 for the PFB and the probes), which the CPU tests hold
+against the JAX package's golden models.
+
 Phases, each of which raises on failure (the script then exits non-zero):
   1. environment: device, ``nvidia-smi`` name and power limit, nvcc, torch;
-  2. build the CUDA kernels from ``paf_baseband2power_tpu_torch/csrc``;
-  3. power and Stokes kernels vs the float64 golden model at 256 x 48
+  2. build the CUDA kernels from ``paf_baseband2power_tpu_torch/csrc``
+     and print each kernel's registers from the build's ptxas report;
+  3. power and Stokes kernels vs the plain int64 versions at 256 x 48
      (nout 1/8/256) and 200 x 48 (nout 1/2), wire and rows, mean on and
      off: bit-equal; the PFB kernel vs its plain version in float64 at the
      same two sizes (nfft 32/128/256/1024, ntap 1/4/8, nout 1 and more,
@@ -19,9 +25,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      for Stokes, a block whose y is x turned by 90 degrees (V = -I):
      bit-equal; the PFB kernel at nfft 128 and 1024, power and Stokes,
      nout 1 and 64, vs its plain version in float64: within 2e-5;
-  5. the main paths through the port's CLI: recordings written with
-     ``paf_gen`` (1024 x 48, wire and ORDER SERIES) checked against the
-     golden model, then recordings of full 8192 x 48 blocks checked
+  5. the main paths through the port's CLI: recordings written with the
+     port's ``paf_gen`` (1024 x 48, wire and ORDER SERIES) checked against
+     the plain version, then recordings of full 8192 x 48 blocks checked
      against the plain versions: the power path (wire, wire x 64 spectra,
      ORDER SERIES), the Stokes path (the same three with ``--stokes``,
      NPOL 4 headers) and the PFB path (``--pfb 128`` and ``--pfb 1024
@@ -31,7 +37,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
      with each path's launch counts set to 0 before each of its runs and
      read after;
   6. ms per block of each kernel and of its plain version at 8192 x 48
-     (CUDA events, after a warm-up; the PFB's plain version in float32).
+     (CUDA events, after a warm-up; the PFB's plain version in float32),
+     with the least time the card could take (bytes over 3.35 TB/s or
+     operations over 67 TFLOP/s, the larger);
+  7. the spectrometer probes (K11-K13): micro, planes and Karatsuba
+     kernels vs their plain versions at small sizes and at 8192 x 48
+     (int16 in [-256, 256)): micro exact, planes (every stage_a) and
+     Karatsuba within 2e-5 of the float64 plain version; their ms per
+     block beside the plain versions' and, for micro, ``torch.sum``'s; then
+     the probes path: both probes' ``main`` at full size with a small
+     ``--iters``, their launch counts set to 0 just before and read after.
 The last two lines are the kernels' JSON record and the result line.
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -43,6 +58,7 @@ import collections
 import contextlib
 import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -57,7 +73,14 @@ FULL_NDF, NCHK = 8192, 48
 CSRC = "paf_baseband2power_tpu_torch/csrc/"
 PALLAS = "paf_baseband2power_tpu/ops/pallas_power.py"
 PALLAS_PFB = "paf_baseband2power_tpu/ops/pallas_pfb.py"
+REFERENCE = PALLAS.split("/", 1)[0]      # the JAX package, never imported
+PROBE_WIDE = "benchmarks/probe_wide_reshape.py"
+PROBE_KAR = "benchmarks/probe_karatsuba.py"
 BOUND_PFB = 2e-5     # peak-normalized, benchmarks/parity_tpu.py:BOUND_PFB
+# one H100 SXM (its published peak rates): HBM bytes/s, fp32
+# FLOP/s outside the tensor cores (also the rate used for the integer work
+# of the detection kernels), TF32 tensor-core FLOP/s
+HBM_BPS, FP32_FLOPS, TF32_FLOPS = 3.35e12, 67e12, 495e12
 # wrapper -> (its kernel's source, the pl.pallas_call it replaces). K2's
 # call stands for K3's at :290, the same entry point's other tile class;
 # K8's (:609, the tile class of nout 1 at 8192 frames) for K7's packed
@@ -71,10 +94,15 @@ KERNELS = {
     "baseband2stokes_scrunch_rows_cuda": ("stokes.cu", f"{PALLAS}:609"),
     "pfb_power_cuda": ("pfb.cu", f"{PALLAS_PFB}:213"),
     "pfb_spectra_cuda": ("pfb.cu", f"{PALLAS_PFB}:679"),
+    "micro_cuda": ("probe_micro.cu", f"{PROBE_WIDE}:77"),
+    "planes_cuda": ("probe_planes.cu", f"{PROBE_WIDE}:226"),
+    "karatsuba_planar_cuda": ("probe_karatsuba.cu", f"{PROBE_KAR}:116"),
 }
 PATHS = {"power": [k for k in KERNELS if k.startswith("baseband2power")],
          "stokes": [k for k in KERNELS if k.startswith("baseband2stokes")],
-         "pfb": [k for k in KERNELS if k.startswith("pfb")]}
+         "pfb": [k for k in KERNELS if k.startswith("pfb")],
+         "probes": ["micro_cuda", "planes_cuda", "karatsuba_planar_cuda"]}
+CLI_PATHS = ("power", "stokes", "pfb")     # driven through the CLI
 # PFB cases of phase 3: nfft, ntap, nout, stokes, mean (each on wire, on
 # rows for nfft 128 and 1024, with and without a carry, where the frame
 # count allows the shape)
@@ -109,10 +137,62 @@ def cuda_ms(fn, iters: int) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def peak_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
-    """(max abs error, max abs error / peak of ``want``)."""
-    d = (got.double() - want.double()).abs().max().item()
-    return d, d / want.double().abs().max().item()
+def bound(nbytes: float, nops: float) -> tuple[float, str]:
+    """The least time in ms the card could take: bytes moved over the HBM
+    rate or fp32 operations over the fp32 rate, the larger, and which it
+    is."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, nops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def pfb_ops(nsamp: int, nfft: int, ntap: int, stokes: bool) -> float:
+    """fp32 operations of the PFB on ``nsamp`` complex samples: FIR
+    (4 ntap), radix-2 FFT (5 log2 nfft) and detection (4 power, 6 Stokes)
+    per sample."""
+    return nsamp * (4 * ntap + 5 * math.log2(nfft) + (6 if stokes else 4))
+
+
+def planes_ops(nseries: int, nrow: int, nfft: int, ntap: int,
+               stage_a: str) -> float:
+    """Least fp32 operations of the planes probe's function on its valid
+    windows, per sample: FIR (4 ntap); stage A as an n1-point FFT (5 log2
+    n1 for ``full`` and ``fft8``, plus 4 to fold k1 with -k1 for
+    ``noswap``'s real twiddles, whichever of that and the direct 4 n1 is
+    less; 0 for ``none``); the twiddle (6); the 128-point FFT (35);
+    |y|^2 (3)."""
+    n1 = nfft // 128
+    fft = 5 * math.log2(n1)
+    stage = {"full": fft, "fft8": fft, "noswap": min(fft + 4, 4 * n1),
+             "none": 0}
+    return (nseries * (nrow - ntap + 1) * nfft
+            * (4 * ntap + stage[stage_a] + 6 + 35 + 3))
+
+
+def karatsuba_ops(nseries: int, ndf: int,
+                  ntap: int) -> tuple[float, float, float]:
+    """fp32 operations of the Karatsuba probe on its valid windows:
+    ``(least, kernel, products)``. Least: the function's, FIR (4 ntap),
+    a 128-point FFT (35) and |y|^2 (3) per sample. Kernel: what
+    ``csrc/probe_karatsuba.cu`` does, three 128 x 128 real products
+    (``products``) plus FIR, sums and |y|^2."""
+    nwin = nseries * (ndf - ntap + 1)
+    products = nwin * 3 * 2 * 128 * 128
+    kernel = nwin * (2 * 256 * ntap + 128 + 256 + 3 * 128) + products
+    return nwin * 128 * (4 * ntap + 35 + 3), kernel, products
+
+
+def ptxas_lines(report: str) -> list[str]:
+    """One line per kernel, ``<source> <kernel>: <registers, shared
+    memory, spills>``, from the build's ptxas report."""
+    lines, src = [], ""
+    for line in report.splitlines():
+        if line.startswith("== "):
+            src = line[3:]
+        elif "Compiling entry function" in line:
+            lines.append(f"{src} {line.split(chr(39))[1]}:")
+        elif lines and ("spill" in line or "Used" in line):
+            lines[-1] += " " + line.split(":", 1)[-1].strip()
+    return lines
 
 
 def run_pfb(blk, nfft, ntap, nout, stokes, mean, carry, layout):
@@ -141,7 +221,7 @@ def run_cli(cli, argv: list[str]) -> dict:
 
 
 def read_records(path: str, shape: tuple) -> tuple[dict, list[np.ndarray]]:
-    from paf_baseband2power_tpu.io.dada import DadaFileReader
+    from paf_baseband2power_tpu_torch.io.dada import DadaFileReader
 
     with DadaFileReader(path) as r:
         nbytes = int(np.prod(shape)) * 4
@@ -157,7 +237,10 @@ def write_full_recording(path: str, layout: str, nblocks: int,
     power, Stokes, 64-window Stokes, PFB 128, PFB 1024 Stokes x 8]`` for
     wire. The PFB records come from the plain streaming version in
     float64, its carry threaded from block to block."""
-    from paf_baseband2power_tpu.io.dada import DadaFileWriter, baseband_header
+    from paf_baseband2power_tpu_torch.io.dada import (
+        DadaFileWriter,
+        baseband_header,
+    )
     from paf_baseband2power_tpu_torch.ops import pfb as PF
     from paf_baseband2power_tpu_torch.ops import power as P
 
@@ -200,21 +283,19 @@ def main() -> int:
               "needs a CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from paf_baseband2power_tpu.cli import paf_gen
-    from paf_baseband2power_tpu.ops import frame as F
-    from paf_baseband2power_tpu.ops.golden import (
-        baseband2power_golden,
-        baseband2power_scrunch_golden,
-        baseband2stokes_golden,
-        baseband2stokes_scrunch_golden,
-    )
     from paf_baseband2power_tpu_torch.cli import paf_baseband2power as cli
+    from paf_baseband2power_tpu_torch.cli import paf_gen
     from paf_baseband2power_tpu_torch.ops import _build
+    from paf_baseband2power_tpu_torch.ops import frame as F
     from paf_baseband2power_tpu_torch.ops import cuda_power as CP
     from paf_baseband2power_tpu_torch.ops import power as P
+    from paf_baseband2power_tpu_torch.probes._common import peak_err
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    # full float32 products in the plain versions: TF32 keeps ~3 digits
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     # --- 1. environment ------------------------------------------------------
     smi = subprocess.run(
@@ -236,8 +317,11 @@ def main() -> int:
     _build.load_library()
     log(f"[2] built {os.path.relpath(lib_path, ROOT)} in "
         f"{time.perf_counter() - t0:.2f} s")
+    for line in ptxas_lines(_build.ptxas_report(lib_path)) or [
+            "no report: the library was built before this run"]:
+        log(f"[2] ptxas {line}")
 
-    # --- 3. kernels vs the float64 golden at 256 x 48 (and 200 x 48) -----
+    # --- 3. kernels vs the plain int64 versions at 256 x 48 (and 200 x 48)
     # 256 frames: nout 1/8/256 as in the main path's shapes; 200 frames:
     # windows of 200 and 100 frames end in a partial 64-frame slab and have
     # mean divisors that are not powers of two.
@@ -248,17 +332,19 @@ def main() -> int:
         rows = torch.from_numpy(F.block_to_rows(block)).to(dev)
         raw = torch.from_numpy(np.frombuffer(F.block_to_bytes(block),
                                              np.uint8).copy()).to(dev)
+        host = torch.from_numpy(block.reshape(ndf, -1))    # plain, on the CPU
         for mean in (False, True):
-            want = baseband2power_golden(block, mean=mean)
+            want = P.baseband2power_2d(host, mean=mean).numpy()
             for name, got in (
                     ("wire", CP.baseband2power_cuda(wire, mean=mean)),
                     ("bytes", CP.baseband2power_cuda_bytes(raw, ndf, NCHK,
                                                            mean=mean))):
                 check(np.array_equal(got.cpu().numpy(), want),
                       f"{ndf} frames {name} nout=1 mean={mean} bit-equal "
-                      "to the golden")
+                      "to the plain version")
             for nout in nouts:
-                want = baseband2power_scrunch_golden(block, nout, mean=mean)
+                want = P.baseband2power_scrunch_2d(host, nout,
+                                                   mean=mean).numpy()
                 for name, got in (
                         ("wire", CP.baseband2power_scrunch_cuda(
                             wire, nout, mean=mean)),
@@ -266,14 +352,15 @@ def main() -> int:
                             rows, nout, mean=mean))):
                     check(np.array_equal(got.cpu().numpy(), want),
                           f"{ndf} frames {name} nout={nout} mean={mean} "
-                          "bit-equal to the golden")
-            want = baseband2stokes_golden(block, mean=mean)
+                          "bit-equal to the plain version")
+            want = P.baseband2stokes_2d(host, mean=mean).numpy()
             check(np.array_equal(
                 CP.baseband2stokes_cuda(wire, mean=mean).cpu().numpy(),
                 want), f"{ndf} frames Stokes wire mean={mean} bit-equal "
-                "to the golden")
+                "to the plain version")
             for nout in nouts:
-                want = baseband2stokes_scrunch_golden(block, nout, mean=mean)
+                want = P.baseband2stokes_scrunch_2d(host, nout,
+                                                    mean=mean).numpy()
                 for name, got in (
                         ("wire", CP.baseband2stokes_scrunch_cuda(
                             wire, nout, mean=mean)),
@@ -281,14 +368,14 @@ def main() -> int:
                             rows, nout, mean=mean))):
                     check(np.array_equal(got.cpu().numpy(), want),
                           f"{ndf} frames Stokes {name} nout={nout} "
-                          f"mean={mean} bit-equal to the golden")
+                          f"mean={mean} bit-equal to the plain version")
     counts = {path: sum(CP.launches[k] for k in PATHS[path])
               for path in ("power", "stokes")}
     check(counts == {"power": 28, "stokes": 24},
           f"launch counters rose by 28 (power) and 24 (Stokes): {counts}")
     log("[3] 256 x 48 (nout 1/8/256) and 200 x 48 (nout 1/2): power (wire, "
         "bytes, rows) and Stokes (wire, rows), mean off/on: bit-equal to the "
-        "float64 golden")
+        "plain int64 versions")
 
     # PFB: full-range int16 drawn on the card; the carry is the tail of
     # another such block
@@ -470,13 +557,14 @@ def main() -> int:
             check(len(recs) == 3 and stats["kernel_launches"] == 3,
                   f"{layout}: 3 records from 3 kernel launches")
             for i, rec in enumerate(recs):
-                want = baseband2power_golden(
-                    F.synthetic_block(rng=5 + i, ndf=ndf, nchk=NCHK))
+                want = P.baseband2power_2d(torch.from_numpy(
+                    F.synthetic_block(rng=5 + i, ndf=ndf,
+                                      nchk=NCHK).reshape(ndf, -1))).numpy()
                 check(np.array_equal(rec, want),
-                      f"{layout} record {i} bit-equal to the golden")
+                      f"{layout} record {i} bit-equal to the plain version")
             os.remove(bb)
         log("[5a] CLI on paf_gen recordings 3 x 1024 x 48, wire and ORDER "
-            "SERIES: every record bit-equal to the float64 golden")
+            "SERIES: every record bit-equal to the plain int64 version")
 
         # 5b. full 8192 x 48 blocks, recorded from device-drawn data; one
         # recording on disk at a time (8.5 GB). Writing one runs only the
@@ -493,7 +581,7 @@ def main() -> int:
                              ("pfb", ["--pfb", "128"], 2)])}
         main_stats = []
         pfb_cli_err = 0.0
-        path_launches = {path: collections.Counter() for path in PATHS}
+        path_launches = {path: collections.Counter() for path in CLI_PATHS}
         for layout, (nblocks, cli_runs) in runs.items():
             path = os.path.join(tmp, f"full-{layout}.dada")
             refs = write_full_recording(path, layout, nblocks, gen, dev)
@@ -526,8 +614,8 @@ def main() -> int:
                           "version")
                     pfb_cli_err = max(pfb_cli_err, e[1])
             os.remove(path)
-        for kind, names in PATHS.items():
-            for name in names:
+        for kind in CLI_PATHS:
+            for name in PATHS[kind]:
                 check(path_launches[kind][name] > 0,
                       f"{kind} main path launched {name}")
     for layout, extra, st in main_stats:
@@ -535,7 +623,7 @@ def main() -> int:
             f"{st['nblocks']} blocks in {st['elapsed_sec']:.3f} s, "
             f"{st['realtime_x']:.3f}x real time, "
             f"{st['kernel_launches']} kernel launches")
-    for kind in PATHS:
+    for kind in CLI_PATHS:
         log(f"[5b] launches over the full-size {kind} path: "
             f"{dict(path_launches[kind])}")
     log(f"[5b] PFB records across block boundaries within {pfb_cli_err:.3e} "
@@ -546,55 +634,60 @@ def main() -> int:
     big = torch.randint(-32768, 32768, (FULL_NDF, NCHK * P.LANES_PER_CHUNK),
                         dtype=torch.int16, device=dev, generator=gen)
     big_rows = big.view(NCHK * 14, FULL_NDF, P.ROW_LANES)
-    timed = {
+    nchan = NCHK * 7
+    n16 = big.numel()
+    timed = {   # name: (kernel, plain, output floats, operations per int16)
         "baseband2power_cuda": (
             lambda: CP.baseband2power_cuda(big),
-            lambda: P.baseband2power_2d(big)),
+            lambda: P.baseband2power_2d(big), nchan, 2),
         "baseband2power_scrunch_cuda": (
             lambda: CP.baseband2power_scrunch_cuda(big, 64),
-            lambda: P.baseband2power_scrunch_2d(big, 64)),
+            lambda: P.baseband2power_scrunch_2d(big, 64), 64 * nchan, 2),
         "baseband2power_scrunch_rows_cuda": (
             lambda: CP.baseband2power_scrunch_rows_cuda(big_rows, 1),
-            lambda: P.baseband2power_scrunch_rows(big_rows, 1)),
+            lambda: P.baseband2power_scrunch_rows(big_rows, 1), nchan, 2),
         "baseband2stokes_cuda": (
             lambda: CP.baseband2stokes_cuda(big),
-            lambda: P.baseband2stokes_2d(big)),
+            lambda: P.baseband2stokes_2d(big), 4 * nchan, 4),
         "baseband2stokes_scrunch_cuda": (
             lambda: CP.baseband2stokes_scrunch_cuda(big, 64),
-            lambda: P.baseband2stokes_scrunch_2d(big, 64)),
+            lambda: P.baseband2stokes_scrunch_2d(big, 64), 64 * 4 * nchan, 4),
         "baseband2stokes_scrunch_rows_cuda": (
             lambda: CP.baseband2stokes_scrunch_rows_cuda(big_rows, 1),
-            lambda: P.baseband2stokes_scrunch_rows(big_rows, 1)),
+            lambda: P.baseband2stokes_scrunch_rows(big_rows, 1), 4 * nchan,
+            4),
     }
-    pfb_timed = [   # (wrapper, case, kernel, float32 plain)
+    pfb_timed = [   # (wrapper, case, kernel, float32 plain, nfft, Stokes,
+                    # spectra)
         ("pfb_power_cuda", "nfft 128 power",
          lambda: CF.pfb_power_cuda(big, 128, 4),
-         lambda: PF.pfb_power(big, 128, 4)),
+         lambda: PF.pfb_power(big, 128, 4), 128, False, 1),
         ("pfb_spectra_cuda", "nfft 1024 Stokes",
          lambda: CF.pfb_spectra_cuda(big, 1024, 4, stokes=True),
-         lambda: PF.pfb_spectra(big, 1024, 4, stokes=True)),
+         lambda: PF.pfb_spectra(big, 1024, 4, stokes=True), 1024, True, 1),
         ("pfb_power_cuda", "nfft 1024 power",
          lambda: CF.pfb_power_cuda(big, 1024, 4),
-         lambda: PF.pfb_power(big, 1024, 4)),
+         lambda: PF.pfb_power(big, 1024, 4), 1024, False, 1),
         ("pfb_spectra_cuda", "nfft 128 Stokes",
          lambda: CF.pfb_spectra_cuda(big, 128, 4, stokes=True),
-         lambda: PF.pfb_spectra(big, 128, 4, stokes=True)),
+         lambda: PF.pfb_spectra(big, 128, 4, stokes=True), 128, True, 1),
         ("pfb_spectra_cuda", "nfft 128 power x 64 spectra",
          lambda: CF.pfb_spectra_cuda(big, 128, 4, nout=64),
-         lambda: PF.pfb_spectra(big, 128, 4, nout=64)),
+         lambda: PF.pfb_spectra(big, 128, 4, nout=64), 128, False, 64),
     ]
     gb = big.numel() * 2 / 1e9
     kernels = []
-    for name, (kern, plain) in timed.items():
+    for name, (kern, plain, nout_f, ops) in timed.items():
         # plain, kernel, kernel, plain: both measured in the same window
         p1 = cuda_ms(plain, 5)
         k1 = cuda_ms(kern, 20)
         k2 = cuda_ms(kern, 20)
         p2 = cuda_ms(plain, 5)
         ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        bound_ms, bound_by = bound(n16 * 2 + nout_f * 4, n16 * ops)
         log(f"[6] {name}: {ms:.4f} ms/block ({gb / ms * 1e3:.1f} GB/s), "
             f"plain {plain_ms:.4f} ms/block ({gb / plain_ms * 1e3:.1f} "
-            f"GB/s) on {smi}")
+            f"GB/s), bound {bound_ms:.4f} ms ({bound_by}) on {smi}")
         source, replaces = KERNELS[name]
         kind = "stokes" if "stokes" in name else "power"
         kernels.append({
@@ -602,15 +695,20 @@ def main() -> int:
             "replaces": replaces,
             "launches": path_launches[kind][name],
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
-    for name, case, kern, plain in pfb_timed:
+    for name, case, kern, plain, nfft, stokes, nout in pfb_timed:
         p1 = cuda_ms(plain, 2)
         k1 = cuda_ms(kern, 5)
         k2 = cuda_ms(kern, 5)
         p2 = cuda_ms(plain, 2)
         ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        bound_ms, bound_by = bound(
+            n16 * 2 + nout * (4 if stokes else 1) * nchan * nfft * 4,
+            pfb_ops(n16 // 2, nfft, 4, stokes))
         log(f"[6] {name} ({case}): {ms:.4f} ms/block ({gb / ms * 1e3:.1f} "
-            f"GB/s), plain float32 {plain_ms:.4f} ms/block on {smi}")
+            f"GB/s), plain float32 {plain_ms:.4f} ms/block, bound "
+            f"{bound_ms:.4f} ms ({bound_by}) on {smi}")
         if any(k["name"] == name for k in kernels):
             continue
         source, replaces = KERNELS[name]
@@ -621,8 +719,19 @@ def main() -> int:
             "max_abs_err": pfb_err[name][0],
             "max_err_peak_normalized": pfb_err[name][1],
             "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
-    check("jax" not in sys.modules, "no jax imported")
+    del big, big_rows
+
+    # --- 7. the spectrometer probes (K11-K13) ------------------------------
+    kernels += probe_phase(dev, gen, smi)
+    check(sorted(k["name"] for k in kernels) == sorted(KERNELS),
+          "one record per wrapper")
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0].startswith("jax")
+                    or m.split(".")[0] == REFERENCE)
+    check(not loaded, f"nothing of jax or of the JAX package imported: "
+          f"{loaded}")
 
     log(smi)
     print(json.dumps({"kernels": kernels}))
@@ -630,6 +739,205 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def run_main(fn, argv: list[str]) -> dict:
+    """Run a probe's ``main`` in this process; returns its JSON line."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(argv)
+    check(rc == 0, f"{fn.__module__} {argv} exit code {rc}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def probe_phase(dev: torch.device, gen: torch.Generator,
+                smi: str) -> list[dict]:
+    """Phase 7: the probe kernels against their plain versions, their
+    times, and the probes path; returns their records of the kernels
+    line."""
+    from paf_baseband2power_tpu_torch.ops import cuda_power as CP
+    from paf_baseband2power_tpu_torch.probes import karatsuba as K
+    from paf_baseband2power_tpu_torch.probes import wide_reshape as W
+    from paf_baseband2power_tpu_torch.probes._common import peak_err
+
+    f64 = torch.float64
+    err = {name: [0.0, 0.0] for name in PATHS["probes"]}
+    calls = collections.Counter()
+
+    def hold(name, got, want, what, exact=False):
+        calls[name] += 1
+        e = peak_err(got, want)
+        err[name] = [max(a, b) for a, b in zip(err[name], e)]
+        if exact:
+            check(torch.equal(got, want),
+                  f"{what}: equal to the plain version")
+        else:
+            check(got.shape == want.shape and e[1] < BOUND_PFB,
+                  f"{what}: {e[1]:.3e} peak-normalized against the float64 "
+                  "plain version")
+
+    def draw(nseries, ndf, seed):
+        gen.manual_seed(seed)
+        return torch.randint(-256, 256, (nseries, ndf, 256), dtype=torch.int16,
+                             device=dev, generator=gen)
+
+    # 7a. small sizes: 2 chunks (28 series), 128 and 64 frames
+    CP.launches.clear()
+    for ndf in (128, 64):
+        rows = draw(28, ndf, ndf)
+        for n1, R in ((1, 16), (2, 8), (8, 2), (8, 16)):
+            for widen in (False, True):
+                if ndf % (R * n1) == 0:
+                    hold("micro_cuda", W.micro_cuda(rows, n1, R, widen),
+                         W.micro(rows, n1, R, widen),
+                         f"micro {ndf} frames n1={n1} R={R} widen={widen}",
+                         exact=True)
+        for nfft in (128, 256, 512, 1024):
+            n1 = nfft // 128
+            xp = W.to_planes(rows, n1)
+            for ntap in (4, 8):
+                for sa in W.STAGE_A:
+                    if sa == "fft8" and n1 != 8:
+                        continue
+                    R = min(8, ndf // n1)
+                    hold("planes_cuda", W.planes_cuda(xp, nfft, ntap, R, sa),
+                         W.planes(xp, nfft, ntap, R, sa, dtype=f64),
+                         f"planes {ndf} frames nfft={nfft} ntap={ntap} "
+                         f"stage_a={sa}")
+        for R in (ndf, 32, 16):
+            hold("karatsuba_planar_cuda", K.karatsuba_planar_cuda(rows, R),
+                 K.karatsuba_planar(rows, R, dtype=f64),
+                 f"Karatsuba {ndf} frames R={R}")
+    chk = K.check_rows()
+    got = K.karatsuba_planar_cuda(torch.from_numpy(chk).to(dev), chk.shape[1])
+    calls["karatsuba_planar_cuda"] += 1
+    check_err = peak_err(got.cpu(), torch.from_numpy(K.planar_golden(chk)))[1]
+    check(check_err < BOUND_PFB, f"Karatsuba --check input: {check_err:.3e} "
+          "against the numpy golden")
+    check(dict(CP.launches) == dict(calls),
+          f"probe launch counters {dict(CP.launches)} match calls "
+          f"{dict(calls)}")
+    log(f"[7] probes at 28 x 128 and 28 x 64, {sum(calls.values())} cases: "
+        f"micro equal, planes and Karatsuba within {BOUND_PFB} of float64 "
+        f"(max abs, peak-normalized: {err}); Karatsuba --check "
+        f"{check_err:.3e} against the numpy golden")
+
+    # 7b. 8192 x 48: the probes' own range, drawn on the card
+    rows = draw(NCHK * 14, FULL_NDF, 2026)
+    nseries = rows.shape[0]
+    xp = W.to_planes(rows, 8)
+    nrow = FULL_NDF // 8
+    for n1, R in ((8, 128), (1, 1024)):
+        for widen in (False, True):
+            hold("micro_cuda", W.micro_cuda(rows, n1, R, widen),
+                 W.micro(rows, n1, R, widen),
+                 f"micro 8192 x 48 n1={n1} R={R} widen={widen}", exact=True)
+    for sa in W.STAGE_A:
+        hold("planes_cuda", W.planes_cuda(xp, 1024, 4, 128, sa),
+             W.planes(xp, 1024, 4, 128, sa, dtype=f64),
+             f"planes 8192 x 48 nfft=1024 R=128 stage_a={sa}")
+    for R in (1024, 2048):
+        hold("karatsuba_planar_cuda", K.karatsuba_planar_cuda(rows, R),
+             K.karatsuba_planar(rows, R, dtype=f64),
+             f"Karatsuba 8192 x 48 R={R}")
+    log(f"[7] probes at 8192 x 48: micro equal, planes (every stage_a) and "
+        f"Karatsuba (R 1024, 2048) within {BOUND_PFB} of float64 (max abs, "
+        f"peak-normalized: {err})")
+
+    # timing: plain (float32), kernel, kernel, plain
+    nbytes = rows.numel() * 2
+    tile = 8 * 128
+
+    def last_tile_sum():
+        return rows[:, -tile:].sum(dim=1, dtype=torch.float32)
+
+    check(torch.equal(last_tile_sum()[:, None], W.micro_cuda(rows, 8, 128)),
+          "torch.sum over the last tile equals micro")
+    kar_least, kar_kernel, kar_products = karatsuba_ops(nseries, FULL_NDF, 4)
+    timed = [   # (wrapper, case, kernel, plain, library call, bound)
+        ("micro_cuda", "n1 8, R 128 (nfft 1024 tiles), narrow",
+         lambda: W.micro_cuda(rows, 8, 128), lambda: W.micro(rows, 8, 128),
+         last_tile_sum, bound(nbytes + nseries * 256 * 4, rows.numel())),
+        ("micro_cuda", "n1 8, R 128, widen",
+         lambda: W.micro_cuda(rows, 8, 128, True),
+         lambda: W.micro(rows, 8, 128, True), last_tile_sum,
+         bound(nbytes + nseries * 256 * 4, rows.numel())),
+        ("micro_cuda", "n1 1, R 1024 (nfft 128 tiles), narrow",
+         lambda: W.micro_cuda(rows, 1, 1024), lambda: W.micro(rows, 1, 1024),
+         None, bound(nbytes + nseries * 256 * 4, rows.numel())),
+    ]
+    for sa in W.STAGE_A:
+        timed.append((
+            "planes_cuda", f"nfft 1024, R 128, stage_a {sa}",
+            lambda sa=sa: W.planes_cuda(xp, 1024, 4, 128, sa),
+            lambda sa=sa: W.planes(xp, 1024, 4, 128, sa), None,
+            bound(nbytes + nseries * 1024 * 4,
+                  planes_ops(nseries, nrow, 1024, 4, sa))))
+    for R in (1024, 2048):
+        timed.append((
+            "karatsuba_planar_cuda", f"R {R}",
+            lambda R=R: K.karatsuba_planar_cuda(rows, R),
+            lambda R=R: K.karatsuba_planar(rows, R), None,
+            bound(nbytes + nseries * 128 * 4, kar_least)))
+    gb = nbytes / 1e9
+    records = []
+    for name, case, kern, plain, library, (bound_ms, bound_by) in timed:
+        quick = name == "micro_cuda"
+        p1 = cuda_ms(plain, 5 if quick else 2)
+        k1 = cuda_ms(kern, 20 if quick else 5)
+        k2 = cuda_ms(kern, 20 if quick else 5)
+        p2 = cuda_ms(plain, 5 if quick else 2)
+        ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        library_ms = cuda_ms(library, 20) if library else None
+        log(f"[7] {name} ({case}): {ms:.4f} ms/block ({gb / ms * 1e3:.1f} "
+            f"GB/s), plain float32 {plain_ms:.4f} ms/block, library "
+            f"{library_ms if library_ms is None else f'{library_ms:.4f}'} "
+            f"ms, bound {bound_ms:.4f} ms ({bound_by}) on {smi}")
+        if any(r["name"] == name for r in records):
+            continue
+        source, replaces = KERNELS[name]
+        records.append({
+            "name": name, "route": "cuda", "source": CSRC + source,
+            "replaces": replaces, "case": case,
+            "max_abs_err": err[name][0],
+            "max_err_peak_normalized": err[name][1],
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms,
+        })
+    # the Karatsuba kernel's own work, beside the function's least
+    tf32x3_ms = (3 * kar_products / TF32_FLOPS
+                 + (kar_kernel - kar_products) / FP32_FLOPS) * 1e3
+    log(f"[7] karatsuba_planar_cuda: its own work {kar_kernel / 1e9:.1f} "
+        f"GFLOP (three products {kar_products / 1e9:.1f}) takes "
+        f"{kar_kernel / FP32_FLOPS * 1e3:.4f} ms on the fp32 CUDA cores, "
+        f"{tf32x3_ms:.4f} ms with the products at 3xTF32 on the tensor "
+        f"cores; the function's least, {kar_least / 1e9:.1f} GFLOP, "
+        f"{kar_least / FP32_FLOPS * 1e3:.4f} ms")
+    del rows, xp
+    torch.cuda.empty_cache()
+
+    # 7c. the probes path: both probes' main at full size
+    CP.launches.clear()
+    wide = run_main(W.main, ["--iters", "3"])
+    kar = run_main(K.main, ["--iters", "3"])
+    launched = collections.Counter(CP.launches)
+    for name in PATHS["probes"]:
+        check(launched[name] > 0, f"probes path launched {name}")
+    check(wide["parity_ok_full"] and wide["parity_ok_fft8"],
+          f"planes parity: {wide}")
+    check(all(isinstance(v, float) for v in wide["results"].values()),
+          f"every wide_reshape variant ran: {wide['results']}")
+    check(set(kar["ms"]) == {"karatsuba R=1024", "karatsuba R=2048",
+                             "interleaved production"}
+          and all(isinstance(v, float) for v in kar["ms"].values()),
+          f"every Karatsuba case ran: {kar['ms']}")
+    log(f"[7] probes path, wide_reshape: {json.dumps(wide)}")
+    log(f"[7] probes path, karatsuba: {json.dumps(kar)}")
+    log(f"[7] launches over the probes path: {dict(launched)}")
+    for r in records:
+        r["launches"] = launched[r["name"]]
+    return records
 
 
 if __name__ == "__main__":

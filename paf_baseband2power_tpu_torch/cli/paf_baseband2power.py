@@ -26,8 +26,17 @@ import sys
 
 import torch
 
-from paf_baseband2power_tpu import constants as C
-from paf_baseband2power_tpu.cli.paf_baseband2power import looks_like_ring_key
+from .. import constants as C
+
+
+def looks_like_ring_key(s: str) -> bool:
+    """A bare hex key of at most 8 digits that names no file (the JAX
+    package's CLI rule)."""
+    try:
+        int(s, 16)
+    except ValueError:
+        return False
+    return len(s) <= 8 and not os.path.exists(s)
 
 
 @contextlib.contextmanager
@@ -114,10 +123,9 @@ def main(argv=None) -> int:
     else:
         device = torch.device("cpu")
 
-    from paf_baseband2power_tpu.io.dada import output_header
-    from paf_baseband2power_tpu.runtime.debug import set_debug
-
+    from ..io.dada import output_header
     from ..ops.pfb import check_rows_nfft
+    from ..runtime.debug import set_debug
     from ..runtime.pipeline import (
         FileSink,
         FileSource,
@@ -135,7 +143,7 @@ def main(argv=None) -> int:
         source = SyntheticSource(n, ndf=args.ndf, nchk=args.nchk)
         in_header = None
     elif args.input.startswith("ring:") or looks_like_ring_key(args.input):
-        from paf_baseband2power_tpu.io.ringbuffer import RingSource
+        from ..io.ringbuffer import RingSource
 
         key = args.input.split(":", 1)[1] \
             if args.input.startswith("ring:") else args.input
@@ -180,7 +188,7 @@ def main(argv=None) -> int:
         hdr["TSAMP"] = str(float(hdr["TSAMP"]) / args.nspectra)
         hdr["NSBLK"] = str(args.nspectra)
     if args.output.startswith("ring:") or looks_like_ring_key(args.output):
-        from paf_baseband2power_tpu.io.ringbuffer import RingSink
+        from ..io.ringbuffer import RingSink
 
         key = args.output.split(":", 1)[1] \
             if args.output.startswith("ring:") else args.output

@@ -1,15 +1,18 @@
-"""Build the package's CUDA kernels from ``csrc/`` at first use.
+"""Build the package's native code at first use.
 
 ``nvcc`` compiles every ``csrc/*.cu``, one process per source, all started
 together, and links the objects into one shared library with a plain
-``extern "C"`` interface, loaded with ``ctypes`` (the pattern of the JAX
-package's native ring library, ``io/ringbuffer.py``). It needs neither
-``ninja`` nor PyTorch's headers, so a build takes seconds.
+``extern "C"`` interface, loaded with ``ctypes``. It needs neither ``ninja``
+nor PyTorch's headers, so a build takes seconds. ``g++`` builds the
+shared-memory ring buffer (``native/ringbuf.cpp``, bound by
+``io/ringbuffer.py``) the same way with :func:`build_host_library`.
 
-The library is named after a hash of the sources, headers and flags, so an
+Each library is named after a hash of its sources, headers and flags, so an
 edited file can never load a stale binary, and it is built in a private
 temporary directory and renamed into place, so concurrent processes cannot
-race.
+race. The compiles run with ``-Xptxas -v``; what ptxas prints (registers,
+shared memory and spills of every kernel) is kept beside the library as
+``<library>.ptxas`` (:func:`ptxas_report`).
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, ".build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
+GXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-pthread", "-shared")
+PTXAS_VERBOSE = ("-Xptxas", "-v")     # a report only: the code is the same
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -52,9 +57,9 @@ def headers(csrc_dir: str) -> list[str]:
     return sorted(glob.glob(os.path.join(csrc_dir, "*.cuh")))
 
 
-def source_hash(paths: list[str]) -> str:
+def source_hash(paths: list[str], flags: tuple = NVCC_FLAGS) -> str:
     """Hash of the flags and every file's name and bytes."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(flags).encode())
     for p in paths:
         h.update(os.path.basename(p).encode() + b"\0")
         with open(p, "rb") as f:
@@ -88,10 +93,39 @@ def build(csrc_dir: str | None = None, build_dir: str | None = None,
     tmp = tempfile.mkdtemp(prefix=".build-", dir=build_dir)
     try:
         objs = [os.path.join(tmp, f"{os.path.basename(s)}.o") for s in srcs]
-        _run_nvcc([([nvcc, *NVCC_FLAGS, "-c", "-o", o, s], o)
-                   for s, o in zip(srcs, objs)])
+        outs = _run_jobs([([nvcc, *NVCC_FLAGS, *PTXAS_VERBOSE, "-c", "-o", o,
+                            s], o) for s, o in zip(srcs, objs)])
         tmp_lib = os.path.join(tmp, os.path.basename(lib))
-        _run_nvcc([([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp_lib, *objs],
+        _run_jobs([([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp_lib, *objs],
+                    tmp_lib)])
+        report = "".join(f"== {os.path.basename(s)}\n{out}"
+                         for s, out in zip(srcs, outs) if out.strip())
+        if report:
+            with open(tmp_lib + ".ptxas", "w") as f:
+                f.write(report)
+            os.replace(tmp_lib + ".ptxas", lib + ".ptxas")
+        os.replace(tmp_lib, lib)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return lib
+
+
+def build_host_library(stem: str, srcs: list[str], hdrs: list[str],
+                       build_dir: str | None = None,
+                       cxx: str = "g++") -> str:
+    """Compile host C++ ``srcs`` with ``cxx`` into
+    ``build_dir/<stem>-<hash>.so`` unless it is there; returns its path.
+    Raises RuntimeError with the compiler's output when the build fails."""
+    build_dir = build_dir or BUILD_DIR
+    lib = os.path.join(
+        build_dir, f"{stem}-{source_hash(srcs + hdrs, GXX_FLAGS)}.so")
+    if os.path.exists(lib):
+        return lib
+    os.makedirs(build_dir, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix=".build-", dir=build_dir)
+    try:
+        tmp_lib = os.path.join(tmp, os.path.basename(lib))
+        _run_jobs([([cxx, *GXX_FLAGS, "-o", tmp_lib, *srcs, "-lrt"],
                     tmp_lib)])
         os.replace(tmp_lib, lib)
     finally:
@@ -99,18 +133,30 @@ def build(csrc_dir: str | None = None, build_dir: str | None = None,
     return lib
 
 
-def _run_nvcc(jobs: list[tuple[list[str], str]]) -> None:
+def ptxas_report(lib: str) -> str:
+    """What ptxas printed when ``lib`` was built ("" when it printed
+    nothing): for each source, ``== <name>.cu`` and then its lines."""
+    try:
+        with open(lib + ".ptxas") as f:
+            return f.read()
+    except FileNotFoundError:
+        return ""
+
+
+def _run_jobs(jobs: list[tuple[list[str], str]]) -> list[str]:
     """Start every ``(command, output file)`` job at once and wait for all
-    of them; raise with nvcc's output for the first that did not write its
-    file."""
+    of them; returns each job's stderr and stdout. Raises with the
+    compiler's output for the first that did not write its file."""
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
              for cmd, _ in jobs]
     outs = [p.communicate() for p in procs]
     for (cmd, path), p, (stdout, stderr) in zip(jobs, procs, outs):
         if p.returncode or not os.path.exists(path):
-            raise RuntimeError(f"nvcc failed ({p.returncode}): "
-                               f"{' '.join(cmd)}\n{stderr}{stdout}")
+            raise RuntimeError(f"{os.path.basename(cmd[0])} failed "
+                               f"({p.returncode}): {' '.join(cmd)}\n"
+                               f"{stderr}{stdout}")
+    return [stderr + stdout for stderr, stdout in outs]
 
 
 def load_library() -> ctypes.CDLL:
@@ -133,6 +179,13 @@ def load_library() -> ctypes.CDLL:
                 "pafb2p_stokes_wire": [ptr, i64, i64, i64, ptr, ptr],
                 "pafb2p_stokes_rows": [ptr, i64, i64, i64, ptr, ptr],
                 "pafb2p_stokes_finish": [ptr, ptr, i64, i64, f64, ptr],
+                "pafb2p_probe_micro": [ptr, i64, i64, i32, i32, i32, ptr,
+                                       ptr],
+                "pafb2p_probe_planes": [ptr, i64, i32, i64, i32, i32, i32,
+                                        ptr, ptr, ptr],
+                "pafb2p_probe_karatsuba": [ptr, i64, i64, i32, i32, ptr, ptr,
+                                           ptr, ptr, ptr, ptr],
+                "pafb2p_probe_tile_sum": [ptr, ptr, i64, i64, i64, ptr],
             }
             for name, args in sigs.items():
                 fn = getattr(lib, name)

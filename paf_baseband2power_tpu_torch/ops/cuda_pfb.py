@@ -15,8 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from paf_baseband2power_tpu.constants import NCHAN_CHK, NPOL_SAMP, NSAMP_DF
-
+from ..constants import NCHAN_CHK, NPOL_SAMP, NSAMP_DF
 from . import pfb as PF
 from ._build import load_library
 from .cuda_power import _on_cpu, _raise, launches

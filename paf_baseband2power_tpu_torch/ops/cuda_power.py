@@ -20,7 +20,7 @@ import collections
 
 import torch
 
-from paf_baseband2power_tpu.constants import NCHAN_CHK
+from ..constants import NCHAN_CHK
 from . import power as P
 from ._build import load_library
 

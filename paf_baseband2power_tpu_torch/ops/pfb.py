@@ -39,8 +39,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from paf_baseband2power_tpu.constants import NCHAN_CHK, NPOL_SAMP, NSAMP_DF
-
+from ..constants import NCHAN_CHK, NPOL_SAMP, NSAMP_DF
 from .power import LANES_PER_CHUNK, ROW_LANES
 
 # the fine-channel sizes the JAX package's rows path takes

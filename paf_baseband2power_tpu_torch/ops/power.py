@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from paf_baseband2power_tpu.constants import (
+from ..constants import (
     DT_SIZE,
     NCHAN_CHK,
     NDIM_POL,

@@ -30,19 +30,14 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
-from paf_baseband2power_tpu import constants as C
-from paf_baseband2power_tpu.io.dada import (
-    DadaFileReader,
-    DadaFileWriter,
-    DadaHeader,
-    output_header,
-)
-from paf_baseband2power_tpu.runtime import debug
-from paf_baseband2power_tpu.runtime.log import open_log
-
+from .. import constants as C
+from ..io.dada import DadaFileReader, DadaFileWriter, DadaHeader, output_header
 from ..ops import cuda_pfb as CPF
 from ..ops import cuda_power as CP
 from ..ops import pfb as PF
+from ..ops.frame import synthetic_block
+from . import debug
+from .log import open_log
 
 
 @dataclasses.dataclass
@@ -83,8 +78,6 @@ class SyntheticSource:
         self._seed, self._scale = seed, scale
 
     def __iter__(self) -> Iterator[np.ndarray]:
-        from paf_baseband2power_tpu.ops.frame import synthetic_block
-
         for i in range(self._blocks):
             b = synthetic_block(rng=self._seed + i, ndf=self._ndf,
                                 nchk=self._nchk, scale=self._scale)

@@ -415,6 +415,30 @@ echo lib > "$2"
     assert os.listdir(tmp_path / "b") == [os.path.basename(lib)]
 
 
+def test_build_keeps_ptxas_report_beside_library(tmp_path):
+    """The compiles run with ``-Xptxas -v`` and what they print is kept as
+    ``<library>.ptxas``, one ``== <source>`` section per source."""
+    src = tmp_path / "src"
+    src.mkdir()
+    for name in ("a.cu", "b.cu"):
+        (src / name).write_text(f"// {name}\n")
+    nvcc = _fake_nvcc(tmp_path / "nvcc", """case " $* " in *" -Xptxas -v "*)
+  for a; do last=$a; done
+  echo "ptxas info    : Used 32 registers for $(basename $last)" >&2;;
+esac
+while [ "$1" != "-o" ]; do shift; done
+echo lib > "$2"
+""")
+    out = tmp_path / "b"
+    lib = _build.build(str(src), str(out), nvcc=nvcc)
+    assert sorted(os.listdir(out)) == sorted(
+        [os.path.basename(lib), os.path.basename(lib) + ".ptxas"])
+    assert _build.ptxas_report(lib) == (
+        "== a.cu\nptxas info    : Used 32 registers for a.cu\n"
+        "== b.cu\nptxas info    : Used 32 registers for b.cu\n")
+    assert _build.ptxas_report(str(tmp_path / "none.so")) == ""
+
+
 def test_build_hash_follows_headers(tmp_path):
     (tmp_path / "k.cu").write_text('#include "g.cuh"\n')
     (tmp_path / "g.cuh").write_text("// v1\n")
