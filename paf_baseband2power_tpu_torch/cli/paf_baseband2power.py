@@ -91,7 +91,9 @@ def main(argv=None) -> int:
     ap.add_argument("--pfb", type=int, default=0, metavar="NFFT",
                     help="channelize with an NFFT-point polyphase "
                     "filterbank before detection (the CUDA kernel takes "
-                    "powers of two 2..1024; ORDER SERIES input 128..1024)")
+                    "powers of two 2..1024 with --ntap 1..8, torch.fft the "
+                    "other shapes; ORDER SERIES input 128..1024, --ntap "
+                    "1..8)")
     ap.add_argument("--ntap", type=int, default=4, help="PFB taps")
     ap.add_argument("--window", default="hamming",
                     choices=["hamming", "hanning", "rect"])
@@ -124,7 +126,7 @@ def main(argv=None) -> int:
         device = torch.device("cpu")
 
     from ..io.dada import output_header
-    from ..ops.pfb import check_rows_nfft
+    from ..ops.pfb import check_rows_nfft, check_rows_ntap
     from ..runtime.debug import set_debug
     from ..runtime.pipeline import (
         FileSink,
@@ -163,6 +165,7 @@ def main(argv=None) -> int:
     if args.pfb and args.device_layout:
         try:
             check_rows_nfft(args.pfb)
+            check_rows_ntap(args.ntap)
         except ValueError as e:
             ap.error(str(e))
 

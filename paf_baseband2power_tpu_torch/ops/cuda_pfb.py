@@ -8,6 +8,13 @@ Dispatch is by the input's device and nothing else, as in
 ``ops/cuda_power.py``: a CPU tensor goes to the plain version in
 ``ops/pfb.py``, a CUDA tensor to the kernel, which either launches or
 raises. Launches are counted in ``cuda_power.launches`` by wrapper name.
+
+The kernel takes the shapes ``kernel_takes`` accepts. The executor sends
+every other shape to ``pfb_spectra_torch`` / ``pfb_power_torch``: the plain
+version on the card through ``torch.fft``, as the JAX package runs the
+shapes its fused kernel does not take in XLA. Those runs are counted as
+``pfb_torch``. The choice is by ``(nfft, ntap)`` alone, never by a failure:
+the CUDA wrappers still raise for a shape the kernel does not take.
 """
 
 from __future__ import annotations
@@ -33,13 +40,55 @@ def tile_slots(nfft: int) -> int:
     return _STEPS_PER_TILE * max(_MIN_STEP // nfft, 1)
 
 
-def _check_kernel_shape(nfft: int, ntap: int) -> None:
+def kernel_refuses(nfft: int, ntap: int) -> str | None:
+    """Why the CUDA kernel does not take ``(nfft, ntap)``, or None."""
     if nfft not in CUDA_NFFTS:
-        raise ValueError(f"the CUDA PFB kernel takes nfft in {CUDA_NFFTS} "
-                         f"(powers of two 2..1024), got {nfft}")
+        if 2 <= nfft <= CUDA_NFFTS[-1]:
+            return f"nfft {nfft} is not a power of two"
+        return (f"nfft {nfft} is outside the CUDA kernel's "
+                f"{CUDA_NFFTS[0]}..{CUDA_NFFTS[-1]}")
     if not 1 <= ntap <= CUDA_MAX_NTAP:
-        raise ValueError(f"the CUDA PFB kernel takes 1 <= ntap <= "
-                         f"{CUDA_MAX_NTAP}, got {ntap}")
+        return f"ntap {ntap} is outside the CUDA kernel's 1..{CUDA_MAX_NTAP}"
+    return None
+
+
+def kernel_takes(nfft: int, ntap: int) -> bool:
+    """Whether the CUDA kernel takes ``(nfft, ntap)``: nfft a power of two
+    in 2..1024 and 1 <= ntap <= ``CUDA_MAX_NTAP``."""
+    return kernel_refuses(nfft, ntap) is None
+
+
+def _check_kernel_shape(nfft: int, ntap: int) -> None:
+    why = kernel_refuses(nfft, ntap)
+    if why is not None:
+        raise ValueError(f"the CUDA PFB kernel takes nfft in {CUDA_NFFTS} "
+                         f"(powers of two 2..1024) and 1 <= ntap <= "
+                         f"{CUDA_MAX_NTAP}: {why}")
+
+
+# per device: (nfft, ntap, window) -> float32 coefficients on the card, and
+# the float64 partials of the last call (reused while their shape holds;
+# every launch is on the device's current stream, so one call's finish
+# has read them before the next call's kernel writes them)
+_coeffs: dict = {}
+_partials: dict = {}
+
+
+def _device_coeffs(nfft: int, ntap: int, window: str,
+                   device: torch.device) -> torch.Tensor:
+    key = (nfft, ntap, window, device)
+    if key not in _coeffs:
+        _coeffs[key] = torch.from_numpy(
+            PF.pfb_coeffs(nfft, ntap, window, np.float32)).to(device)
+    return _coeffs[key]
+
+
+def _device_partials(shape: tuple, device: torch.device) -> torch.Tensor:
+    buf = _partials.get(device)
+    if buf is None or tuple(buf.shape) != shape:
+        buf = torch.empty(shape, dtype=torch.float64, device=device)
+        _partials[device] = buf
+    return buf
 
 
 def _launch(block: torch.Tensor, layout: str, nfft: int, ntap: int,
@@ -61,10 +110,8 @@ def _launch(block: torch.Tensor, layout: str, nfft: int, ntap: int,
     nsub = -(-wpg // ts)
     ns = 4 if stokes else 1
     nchan = nchk * NCHAN_CHK
-    coeffs = torch.from_numpy(PF.pfb_coeffs(nfft, ntap, window, np.float32)
-                              ).to(block.device)
-    partial = torch.empty((nout * nsub, nchan, ns, nfft), dtype=torch.float64,
-                          device=block.device)
+    coeffs = _device_coeffs(nfft, ntap, window, block.device)
+    partial = _device_partials((nout * nsub, nchan, ns, nfft), block.device)
     out = torch.empty((nout, ns, nchan * nfft), dtype=torch.float32,
                       device=block.device)
     div = (PF.mean_divisors(nout, wpg, ntap, stokes, hist is not None)
@@ -123,3 +170,20 @@ def pfb_power_cuda(block: torch.Tensor, nfft: int, ntap: int = 4,
     if return_history:
         return out, PF.pfb_history(block, nfft, ntap, layout)
     return out
+
+
+def pfb_spectra_torch(block: torch.Tensor, nfft: int, ntap: int = 4, **kw):
+    """The plain version of ``pfb_spectra_cuda`` on any device (on the card
+    through ``torch.fft``): the route for the shapes the kernel does not
+    take. A run on the card counts one ``pfb_torch``."""
+    if not _on_cpu(block):
+        launches["pfb_torch"] += 1
+    return PF.pfb_spectra(block, nfft, ntap, **kw)
+
+
+def pfb_power_torch(block: torch.Tensor, nfft: int, ntap: int = 4, **kw):
+    """The plain version of ``pfb_power_cuda`` on any device; counted as
+    ``pfb_spectra_torch`` is."""
+    if not _on_cpu(block):
+        launches["pfb_torch"] += 1
+    return PF.pfb_power(block, nfft, ntap, **kw)

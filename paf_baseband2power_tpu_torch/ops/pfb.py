@@ -45,6 +45,8 @@ from .power import LANES_PER_CHUNK, ROW_LANES
 # the fine-channel sizes the JAX package's rows path takes
 # (``ops/pallas_pfb.py:FUSED_NFFTS``)
 ROWS_NFFTS = (128, 256, 512, 1024)
+# and the most taps it takes (``pallas_pfb.py:pfb_spectra_fused``)
+ROWS_MAX_NTAP = 8
 
 
 def pfb_coeffs(nfft: int, ntap: int = 4, window: str = "hamming",
@@ -76,6 +78,17 @@ def check_rows_nfft(nfft: int) -> None:
             f"device-layout PFB supports nfft in {ROWS_NFFTS} (the fused "
             f"kernel consumes rows directly), got {nfft}; re-record or use "
             "a wire-layout ring for other sizes")
+
+
+def check_rows_ntap(ntap: int) -> None:
+    """Series-row blocks go through the CUDA kernel only, so they take at
+    most ``ROWS_MAX_NTAP`` taps (the JAX package's rows path refuses more
+    too)."""
+    if not 1 <= ntap <= ROWS_MAX_NTAP:
+        raise ValueError(
+            f"device-layout PFB supports 1 <= ntap <= {ROWS_MAX_NTAP} (the "
+            f"kernel consumes rows directly), got {ntap}; use a wire-layout "
+            "ring for more taps")
 
 
 def spectra_chunk_groups(nchk: int) -> int:

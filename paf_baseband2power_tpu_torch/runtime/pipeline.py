@@ -201,7 +201,9 @@ class PowerPipeline:
     ``ops/cuda_power.py`` and ``ops/cuda_pfb.py``; on the CPU through their
     plain versions. ``stokes`` records I, Q, U, V per channel instead of
     total power. ``pfb_nfft`` channelizes each coarse channel into that
-    many fine channels first (``pfb_ntap`` taps, ``pfb_window``).
+    many fine channels first (``pfb_ntap`` taps, ``pfb_window``): through
+    the CUDA kernel where ``cuda_pfb.kernel_takes`` the shape, else through
+    ``torch.fft`` (``cuda_pfb.pfb_*_torch``), chosen once, here.
     """
 
     def __init__(self, device: torch.device | str, mean: bool = False,
@@ -218,20 +220,30 @@ class PowerPipeline:
         self._stokes = stokes
         self._depth = max(1, depth)
         self._pfb = None
+        self._pfb_route = ""
         if pfb_nfft:
             if device_layout:
                 PF.check_rows_nfft(pfb_nfft)
+                PF.check_rows_ntap(pfb_ntap)
             kw = dict(window=pfb_window, mean=mean,
                       layout="rows" if device_layout else "wire")
+            # by shape alone, as the JAX factories choose the fused kernel
+            why = CPF.kernel_refuses(pfb_nfft, pfb_ntap)
+            self._pfb_route = ("CUDA kernel" if why is None
+                               else f"torch.fft: {why}")
             if nout == 1 and not stokes:
                 self._pfb = PF.make_streaming_pfb(
-                    pfb_nfft, pfb_ntap, power=CPF.pfb_power_cuda, **kw)
+                    pfb_nfft, pfb_ntap, power=CPF.pfb_power_cuda
+                    if why is None else CPF.pfb_power_torch, **kw)
             else:
                 self._pfb = PF.make_streaming_spectra(
                     pfb_nfft, pfb_ntap, nout=nout, stokes=stokes,
-                    spectra=CPF.pfb_spectra_cuda, **kw)
+                    spectra=CPF.pfb_spectra_cuda
+                    if why is None else CPF.pfb_spectra_torch, **kw)
         self._carry = None
         self.log = open_log(name, log_dir)
+        if self._pfb is not None:
+            self.log.info("PFB route: %s", self._pfb_route)
 
     def power(self, x: torch.Tensor) -> torch.Tensor:
         """One block's record: ``(nchan,)`` or ``(nout, nchan)`` float32,
@@ -281,7 +293,9 @@ class PowerPipeline:
 
     def _mode(self) -> str:
         mode = "Stokes" if self._stokes else "power"
-        return f"PFB {mode}" if self._pfb is not None else mode
+        if self._pfb is None:
+            return mode
+        return f"PFB {mode} ({self._pfb_route})"
 
     def run(self, source: Iterable[np.ndarray], sink) -> PipelineStats:
         """Stream every block of ``source`` to ``sink``; a PFB stream starts

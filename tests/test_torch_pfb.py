@@ -368,6 +368,96 @@ def test_kernel_shape_limits_raise_on_cuda(nfft, ntap, monkeypatch,
     assert P.pfb_spectra(cpu, nfft, ntap).shape == (1, C.NCHAN_CHK * nfft)
 
 
+ROUTE_TORCH = {(2048, 4): "nfft 2048 is outside the CUDA kernel's 2..1024",
+               (96, 4): "nfft 96 is not a power of two",
+               (128, 12): "ntap 12 is outside the CUDA kernel's 1..8"}
+
+
+def test_kernel_takes_matches_the_kernel_shape_check():
+    for nfft in list(range(1, 1100)) + [2048, 4096]:
+        for ntap in range(0, 14):
+            takes = nfft in CF.CUDA_NFFTS and 1 <= ntap <= CF.CUDA_MAX_NTAP
+            assert CF.kernel_takes(nfft, ntap) == takes
+            if takes:
+                CF._check_kernel_shape(nfft, ntap)
+            else:
+                with pytest.raises(ValueError, match="CUDA PFB kernel takes"):
+                    CF._check_kernel_shape(nfft, ntap)
+    for (nfft, ntap), why in ROUTE_TORCH.items():
+        assert CF.kernel_refuses(nfft, ntap) == why
+
+
+@pytest.mark.parametrize("nout,stokes", [(1, False), (2, False), (1, True)])
+def test_pipeline_routes_pfb_by_shape_on_cuda(nout, stokes, monkeypatch):
+    """For a CUDA device the executor sends every (nfft, ntap) the kernel
+    takes to its CUDA wrapper, and nfft 2048, 96 and ntap 12 to the
+    torch.fft route, chosen by shape alone and named in its description."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from paf_baseband2power_tpu_torch.runtime.pipeline import PowerPipeline
+
+    called = []
+    for name in ("pfb_power_cuda", "pfb_spectra_cuda", "pfb_power_torch",
+                 "pfb_spectra_torch"):
+        monkeypatch.setattr(CF, name, lambda x, *a, _n=name, **kw: (
+            called.append((_n, a[:2])), (x, None))[1])
+    fn = "power" if nout == 1 and not stokes else "spectra"
+    shapes = [(n, t) for n in CF.CUDA_NFFTS
+              for t in range(1, CF.CUDA_MAX_NTAP + 1)] + list(ROUTE_TORCH)
+    with FakeTensorMode():
+        x = torch.empty((NDF, NCHK * 3584), dtype=torch.int16, device="cuda")
+        for nfft, ntap in shapes:
+            called.clear()
+            pipe = PowerPipeline("cuda", nout=nout, stokes=stokes,
+                                 pfb_nfft=nfft, pfb_ntap=ntap)
+            assert pipe.power(x) is x
+            takes = CF.kernel_takes(nfft, ntap)
+            route = "cuda" if takes else "torch"
+            assert called == [(f"pfb_{fn}_{route}", (nfft, ntap))]
+            assert pipe._mode().endswith(
+                "(CUDA kernel)" if takes
+                else f"(torch.fft: {ROUTE_TORCH[nfft, ntap]})")
+
+
+@pytest.mark.parametrize("fn", ["pfb_power", "pfb_spectra"])
+def test_torch_route_counts_runs_on_cuda(fn, monkeypatch):
+    """The torch.fft route runs the plain version on the tensor's own
+    device; a CUDA tensor counts one ``pfb_torch``, a CPU tensor none."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    seen = []
+    monkeypatch.setattr(CF.PF, fn, lambda x, nfft, ntap, **kw: (
+        seen.append((x.device.type, nfft, ntap, kw)), x)[1])
+    route = getattr(CF, f"{fn}_torch")
+    before = CP.launches["pfb_torch"]
+    with FakeTensorMode():
+        x = torch.empty((64, 3584), dtype=torch.int16, device="cuda")
+        assert route(x, 2048, 4, mean=True) is x
+    assert CP.launches["pfb_torch"] == before + 1
+    cpu = _wire(_block(66, 64, 1))
+    assert route(cpu, 128, 12) is cpu
+    assert CP.launches["pfb_torch"] == before + 1
+    assert seen == [("cuda", 2048, 4, {"mean": True}), ("cpu", 128, 12, {})]
+
+
+def test_kernel_coeffs_and_partials_are_cached():
+    """Repeated calls reuse the coefficients on the card and the partials
+    buffer while their key and shape hold."""
+    dev = torch.device("cpu")     # the caches are keyed by device only
+    a = CF._device_coeffs(128, 4, "hamming", dev)
+    assert CF._device_coeffs(128, 4, "hamming", dev) is a
+    assert CF._device_coeffs(128, 4, "rect", dev) is not a
+    np.testing.assert_array_equal(a.numpy(), P.pfb_coeffs(128, 4))
+    p = CF._device_partials((2, 3, 1, 8), dev)
+    assert CF._device_partials((2, 3, 1, 8), dev) is p
+    q = CF._device_partials((2, 3, 4, 8), dev)
+    assert q is not p and q.dtype == torch.float64
+
+
 def test_tile_slots_cover_whole_steps():
     for nfft in CF.CUDA_NFFTS:
         ts = CF.tile_slots(nfft)

@@ -167,10 +167,11 @@ def test_staging_rejects_shape_change():
 
 @pytest.mark.parametrize("kw,item", [({"stokes": True, "pfb_nfft": 64},
                                       "64"),
-                                     ({"pfb_nfft": 2048}, "2048")])
+                                     ({"pfb_nfft": 2048}, "2048"),
+                                     ({"pfb_nfft": 128, "pfb_ntap": 9}, "9")])
 def test_pipeline_unported_modes_raise(kw, item):
-    """Series-row blocks take the PFB at nfft 128-1024 only, as in the JAX
-    package (its fused kernel's sizes)."""
+    """Series-row blocks take the PFB at nfft 128-1024 and 1-8 taps only,
+    as in the JAX package (its fused kernel's sizes)."""
     with pytest.raises(ValueError, match=f"device-layout PFB .* got {item}"):
         RP.PowerPipeline("cpu", device_layout=True, **kw)
 
@@ -232,10 +233,12 @@ def test_cli_stokes_matches_golden_and_jax_cli(tmp_path, layout, nspectra):
 
 
 @pytest.mark.parametrize("flags", [["--stokes", "--pfb", "64"],
-                                   ["--pfb", "2048"]])
+                                   ["--pfb", "2048"],
+                                   ["--pfb", "128", "--ntap", "12"]])
 def test_cli_unported_flags_exit(tmp_path, flags, capsys):
-    """ORDER SERIES input with an nfft the rows path does not take: the
-    JAX package's message, before any output is written."""
+    """ORDER SERIES input with an nfft or ntap the rows path does not take:
+    a usage error (the JAX package's message for nfft), before any output
+    is written."""
     bb, out = tmp_path / "bb.dada", tmp_path / "x.dada"
     _gen(bb, layout="rows", nblocks=1, nchk=4)
     capsys.readouterr()
@@ -244,7 +247,10 @@ def test_cli_unported_flags_exit(tmp_path, flags, capsys):
                   "--nchk", "4", "--platform", "cpu"] + flags)
     assert e.value.code != 0
     err = capsys.readouterr().err
-    assert "device-layout PFB supports nfft in (128, 256, 512, 1024)" in err
+    assert ("device-layout PFB supports 1 <= ntap <= 8" if "--ntap" in flags
+            else "device-layout PFB supports nfft in (128, 256, 512, 1024)"
+            ) in err
+    assert "usage:" in err and "Traceback" not in err
     assert not out.exists()
 
 
@@ -303,12 +309,12 @@ def test_file_source_layouts(tmp_path):
 
 
 def _pfb_golden_stream(seed, nblocks, nfft, nout, stokes, ndf=NDF,
-                       nchk=NCHK):
+                       nchk=NCHK, ntap=4):
     """The float64 golden over the whole stream of ``paf_gen`` blocks,
     ``nout`` spectra per block: the records a carried stream must give."""
     blocks = [F.synthetic_block(rng=seed + i, ndf=ndf, nchk=nchk)
               for i in range(nblocks)]
-    want = pfb_spectra_golden(np.concatenate(blocks), nfft, 4,
+    want = pfb_spectra_golden(np.concatenate(blocks), nfft, ntap,
                               nout=nblocks * nout, stokes=stokes)
     return [want[i * nout:(i + 1) * nout] for i in range(nblocks)]
 
@@ -321,16 +327,33 @@ def _pfb_err(got, want) -> float:
 @pytest.mark.parametrize("layout,flags", [
     ("wire", ["--pfb", "32"]),
     ("wire", ["--pfb", "128", "--stokes", "--nspectra", "2"]),
-    ("rows", ["--pfb", "128"])])
+    ("rows", ["--pfb", "128"]),
+    # the shapes the CUDA kernel does not take (the torch.fft route on the
+    # card): the smallest inputs of both, from the synthetic source
+    ("synthetic", ["--pfb", "2048", "--ndf", "64", "--nchk", "1"]),
+    ("synthetic", ["--pfb", "128", "--ntap", "12", "--ndf", "64",
+                   "--nchk", "1"])])
 def test_cli_pfb_matches_golden_stream_and_jax_cli(tmp_path, layout, flags):
-    nchk, nfft = 2, int(flags[1])
+    opt = dict(zip(flags[::2], flags[1::2]))
+    nchk, nfft = int(opt.get("--nchk", 2)), int(opt["--pfb"])
+    ndf, ntap = int(opt.get("--ndf", NDF)), int(opt.get("--ntap", 4))
     stokes, nout = "--stokes" in flags, 2 if "--nspectra" in flags else 1
-    inp = str(tmp_path / "bb.dada")
-    _gen(inp, layout=layout, nblocks=3, seed=21, nchk=nchk)
-    common = ["-a", inp, "--ndf", str(NDF), "--nchk", str(nchk)] + flags
+    if layout == "synthetic":
+        inp, nblocks, seed = "synthetic:2", 2, 0
+        common = ["-a", inp] + flags
+    else:
+        inp, nblocks, seed = str(tmp_path / "bb.dada"), 3, 21
+        _gen(inp, layout=layout, nblocks=3, seed=seed, nchk=nchk)
+        common = ["-a", inp, "--ndf", str(ndf), "--nchk", str(nchk)] + flags
     port_out, jax_out = tmp_path / "port.dada", tmp_path / "jax.dada"
     assert cli.main(common + ["-b", str(port_out), "--platform", "cpu"]) == 0
-    assert jax_cli.main(common + ["-b", str(jax_out)]) == 0
+    # the JAX CLI in a process of its own, on the CPU
+    r = subprocess.run(
+        [sys.executable, "-m", "paf_baseband2power_tpu.cli.paf_baseband2power"]
+        + common + ["-b", str(jax_out)],
+        env=dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu"),
+        capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
     shape = (nout,) + ((4,) if stokes else ()) + (nchk * C.NCHAN_CHK * nfft,)
     with DadaFileReader(str(port_out)) as r, \
             DadaFileReader(str(jax_out)) as q:
@@ -342,13 +365,15 @@ def test_cli_pfb_matches_golden_stream_and_jax_cli(tmp_path, layout, flags):
         assert r.header == q.header
         hdr = r.header
     assert hdr.get_int("NCHAN") == nchk * C.NCHAN_CHK * nfft
-    assert hdr["PFB_NFFT"] == str(nfft) and hdr["PFB_NTAP"] == "4"
+    assert hdr["PFB_NFFT"] == str(nfft) and hdr["PFB_NTAP"] == str(ntap)
     assert hdr["PFB_WINDOW"] == "hamming"
     assert hdr["NPOL"] == ("4" if stokes else "1")
-    assert len(got) == len(want_jax) == 3
-    golden = _pfb_golden_stream(21, 3, nfft, nout, stokes, nchk=nchk)
+    assert len(got) == len(want_jax) == nblocks
+    golden = _pfb_golden_stream(seed, nblocks, nfft, nout, stokes, ndf=ndf,
+                                nchk=nchk, ntap=ntap)
     for rec, jrec, want in zip(got, want_jax, golden):
         assert _pfb_err(rec, want) < 2e-5
+        assert _pfb_err(rec, jrec.astype(np.float64)) < 2e-5
         atol = 1e-5 * float(np.abs(jrec).max())
         np.testing.assert_allclose(rec, jrec, rtol=2e-4, atol=atol)
 
