@@ -12,40 +12,52 @@
 // (8, 128); none of that carries over. Here any power-of-two nfft from 2 to
 // 1024, 1 <= ntap <= 8 and any nout the golden takes (wpg >= ntap - 1) work.
 //
-// Work: one block per (coarse channel, tile of window end slots). Both pols
-// of the channel go through the block together: a wire load of 8 bytes is
-// one (x, y) sample pair; rows read the same sample of series 2 ch and
-// 2 ch + 1. Per step the block
-//   1. loads the next sp = max(nfft, 256) samples of both pols into a ring
-//      in shared memory that also holds the (ntap - 1) * nfft samples before
-//      them, so the FIR stencil carries across steps and each sample is
-//      read from device memory once per tile (the wire layout's 56-byte
-//      stride between a channel's samples is left to L2: the 7 channels of
-//      a chunk are neighbouring blocks and read the same sectors);
-//   2. forms W = sp / nfft windows per pol in fp32 (FIR: ntap shifted rows
-//      times the coefficients, kept in shared memory), written in
-//      bit-reversed order;
-//   3. runs radix-2 decimation-in-time FFTs in shared memory, twiddles
-//      computed in double and stored as float;
-//   4. detects |x|^2 + |y|^2 or I, Q, U, V per window and adds it, in
-//      float64, to the thread's accumulators (a thread owns fixed fine
-//      channels for the whole tile).
+// Work: one block of 8 warps per (coarse channel, tile of window end slots).
+// Both pols of the channel go through the block together: a wire load of 8
+// bytes is one (x, y) sample pair; rows read the same sample of series 2 ch
+// and 2 ch + 1. Per step of W = sp / nfft windows, sp = max(4 nfft, 1024)
+// samples per pol, the block
+//   1. loads the step's samples of both pols into a ring in shared memory of
+//      R = ntap - 1 + W rows of nfft pairs, which also holds the ntap - 1
+//      rows before them, so the FIR stencil carries across steps and each
+//      sample is read from device memory once per tile (the wire layout's
+//      56-byte stride between a channel's samples is left to L2: the 7
+//      channels of a chunk are neighbouring blocks and read the same
+//      sectors); then one barrier;
+//   2. runs 2 W FFTs, one per (window, pol), each in the registers of one
+//      warp (of P = min(nfft, 32) lanes of one; nfft < 32 puts 32 / nfft
+//      FFTs side by side in a warp), with no barrier: lane p forms the FIR
+//      outputs of points n = p + P j, j < m = nfft / P, straight from the
+//      ring into registers; an m-point radix-2 FFT in its registers (m a
+//      template parameter, fully unrolled); the twiddles W_nfft^(p k1); a
+//      P-point radix-2 FFT across the lanes in log2(P) __shfl_xor_sync
+//      stages. Lane p then holds bin k1 + m k2 in register i, k1 = brev_m(i)
+//      and k2 = brev_P(p), and writes it to position i P + p of the window
+//      in shared memory (consecutive lanes, consecutive addresses); then one
+//      barrier;
+//   3. detects |x|^2 + |y|^2 or I, Q, U, V per position and adds it, in
+//      float64, to the thread's accumulators: a thread owns the same
+//      positions, so the same bins, in every window of the tile.
 // Window w of the block ends in row slot e (rows are nfft samples) and lands
 // in spectrum e / wpg. Tiles never straddle spectra. Slots e < ntap - 1 read
 // the carry, or do not exist one-shot. Each block writes its float64 sums to
-// its own slot of a partials array; a finish kernel adds a spectrum's tiles
-// in a fixed order (no float atomics: results do not vary from run to run),
-// divides for the mean, fftshifts and writes float32 (nout, ns, nchan, nfft).
+// its own slot of a partials array, each position to its bin; a finish
+// kernel adds a spectrum's tiles in a fixed order (no float atomics: results
+// do not vary from run to run), divides for the mean, fftshifts and writes
+// float32 (nout, ns, nchan, nfft).
 //
-// Bound: shared memory and fp32 throughput, not HBM. The 2.8 GB block is read
-// once (0.84 ms at 3.35 TB/s), but every complex sample then takes ntap FIR
-// multiply-adds and log2(nfft) radix-2 butterfly passes through shared
-// memory with a barrier each. A first version, written to be right; faster
-// FFTs (radix 4/8 in registers, one warp per FFT) are later work.
+// Bound: HBM bytes. The 2.8 GB block is read once (0.84 ms at 3.35 TB/s);
+// the function's least arithmetic (FIR 4 ntap, FFT 5 log2 nfft, detection
+// flops per complex sample) takes less. What the kernel adds on top: ntap
+// ring and coefficient reads from shared memory per point, one write and
+// one read of each spectrum, 2 log2(P) lane shuffles per point and two
+// barriers per step; the first version of this kernel, with log2(nfft)
+// shared-memory radix-2 passes and a barrier each, took 19x its bound.
 //
 // Accuracy: fp32 FIR and FFT (about log2(nfft) rounding steps, well under
 // the 2e-5 peak-normalized bound against the float64 reference); sums over
-// up to 2^19 windows in float64. No fast-math.
+// up to 2^19 windows in float64. Twiddles computed in double, stored as
+// float. No fast-math.
 
 #include <cstdint>
 
@@ -58,7 +70,9 @@ namespace {
 using namespace pafb2p;
 
 constexpr int kPfbThreads = 256;
-constexpr int kMinStep = 256;      // samples per pol per step, at least
+constexpr int kWarps = kPfbThreads / 32;
+constexpr int kMinStep = 1024;     // samples per pol per step, at least
+constexpr int kMinWindows = 4;     // windows per step, at least: an FFT a warp
 constexpr int kMaxNfft = 1024;
 constexpr int kMaxNtap = 8;
 constexpr int64_t kPairsChunk = 896;   // 8-byte (x, y) pairs per chunk-frame
@@ -69,7 +83,7 @@ struct PfbArgs {
   const float* coeffs;   // (ntap, nfft)
   double* partial;       // (nout * nsub, nchan, ns, nfft)
   int64_t nchk, nchan, nsamp, nblk, wpg, nsub, ts, halo;
-  int nfft, log2n, ntap, sp, w, cap;
+  int nfft, log2n, ntap, sp, w, rows;
 };
 
 // Wire: the pair of channel ch at sample p is int2 (x word, y word).
@@ -110,27 +124,80 @@ __device__ __forceinline__ float im16(int w) {
   return static_cast<float>(w >> 16);
 }
 
-// Shared memory of one block, in bytes, and its carve-up (all 8-byte units).
-inline size_t pfb_smem(int cap, int sp, int nfft, int ntap, int ns) {
-  return sizeof(int2) * cap + sizeof(double) * kPfbThreads * ns +
-         sizeof(float2) * (2 * sp + nfft / 2) + sizeof(float) * ntap * nfft;
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
+__device__ __forceinline__ float2 twiddle(int k, int n) {  // W_n^k
+  double s, c;
+  sincospi(-2.0 * k / n, &s, &c);
+  return make_float2(static_cast<float>(c), static_cast<float>(s));
+}
+
+__device__ __forceinline__ int bit_reverse(int x, int bits) {
+  return bits ? static_cast<int>(__brev(static_cast<unsigned>(x)) >>
+                                 (32 - bits))
+              : 0;
+}
+
+constexpr int log2i(int n) { return n > 1 ? 1 + log2i(n / 2) : 0; }
+
+// In-register M-point radix-2 decimation in frequency: natural order in,
+// bit-reversed out (a[i] = A[brev_M(i)]). twm[q] = W_M^q, q < M / 2.
+template <int M>
+__device__ __forceinline__ void register_fft(float2 (&a)[M],
+                                             const float2* twm) {
+#pragma unroll
+  for (int s = 0; s < log2i(M); ++s) {
+    const int half = M >> (s + 1);
+#pragma unroll
+    for (int b = 0; b < M; b += 2 * half) {
+#pragma unroll
+      for (int i = 0; i < half; ++i) {
+        const float2 u = a[b + i], v = a[b + i + half];
+        const float2 d = make_float2(u.x - v.x, u.y - v.y);
+        const int q = i << s;                 // W_(2 half)^i = W_M^q
+        a[b + i] = make_float2(u.x + v.x, u.y + v.y);
+        a[b + i + half] = q == 0 ? d
+                          : 4 * q == M ? make_float2(d.y, -d.x)
+                                       : cmul(d, twm[q]);
+      }
+    }
+  }
+}
+
+// Shared memory of one block, in bytes, and its carve-up (all 8-byte units
+// but the coefficients, last).
+inline size_t pfb_smem(int rows, int sp, int nfft, int ntap, int ns) {
+  return sizeof(int2) * rows * nfft + sizeof(float2) * 2 * sp +
+         sizeof(double) * kPfbThreads * ns +
+         sizeof(float2) * (nfft + kMaxNfft / 64) +
+         sizeof(float) * ntap * nfft;
 }
 
 // One block per (channel, tile); blockIdx.x = tile * nchan + channel, so the
-// 7 channels of a chunk run side by side.
-template <class L, bool kStokes>
+// 7 channels of a chunk run side by side. kM = max(nfft / 32, 1) points per
+// lane.
+template <class L, bool kStokes, int kM>
 __global__ void __launch_bounds__(kPfbThreads) pfb_kernel(PfbArgs a) {
   constexpr int ns = kStokes ? 4 : 1;
-  constexpr int kMaxPer = kMaxNfft / kPfbThreads;
+  // positions per thread and step (sp / 256), and distinct ones (bins)
+  constexpr int kPer = kM / 2 > 4 ? kM / 2 : 4;
+  constexpr int kBins = kM / 8 > 1 ? kM / 8 : 1;
   extern __shared__ __align__(16) unsigned char smem[];
-  int2* ring = reinterpret_cast<int2*>(smem);              // cap pairs
-  double* red = reinterpret_cast<double*>(ring + a.cap);    // ns x threads
-  float2* buf = reinterpret_cast<float2*>(red + kPfbThreads * ns);  // 2 x sp
-  float2* tw = buf + 2 * a.sp;                              // nfft / 2
-  float* coef = reinterpret_cast<float*>(tw + a.nfft / 2);  // ntap x nfft
+  const int nfft = a.nfft, sp = a.sp, W = a.w, R = a.rows;
+  int2* ring = reinterpret_cast<int2*>(smem);               // R x nfft pairs
+  float2* buf = reinterpret_cast<float2*>(ring + R * nfft);  // 2 x sp
+  double* red = reinterpret_cast<double*>(buf + 2 * sp);     // ns x threads
+  float2* tw = reinterpret_cast<float2*>(red + kPfbThreads * ns);  // nfft
+  float2* twm = tw + nfft;                                   // kM / 2
+  float* coef = reinterpret_cast<float*>(twm + kMaxNfft / 64);  // ntap x nfft
 
-  const int tid = threadIdx.x;
-  const int nfft = a.nfft, sp = a.sp, mask = a.cap - 1;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int P = kM > 1 ? 32 : nfft;           // lanes per FFT
+  const int lp = a.log2n - log2i(kM);         // log2(P)
+  const int G = 32 >> lp;                     // FFTs side by side per warp
+  const int p = lane & (P - 1);
   const int64_t ch = blockIdx.x % a.nchan;
   const int64_t tile = blockIdx.x / a.nchan;
   const int64_t g = tile / a.nsub;
@@ -138,111 +205,143 @@ __global__ void __launch_bounds__(kPfbThreads) pfb_kernel(PfbArgs a) {
   const int64_t e_end = min(e0 + a.ts, (g + 1) * a.wpg);
   const int64_t first = a.hist != nullptr ? 0 : a.ntap - 1;
 
-  for (int i = tid; i < nfft / 2; i += kPfbThreads) {
-    double s, c;
-    sincospi(-2.0 * i / nfft, &s, &c);
-    tw[i] = make_float2(static_cast<float>(c), static_cast<float>(s));
+  // tw[k1 * 32 + p] = W_nfft^(p k1) (kM > 1), twm[q] = W_kM^q
+  for (int i = tid; i < (kM > 1 ? nfft : 0); i += kPfbThreads) {
+    tw[i] = twiddle((i & 31) * (i >> 5), nfft);
   }
+  for (int i = tid; i < kM / 2; i += kPfbThreads) twm[i] = twiddle(i, kM);
   for (int i = tid; i < a.ntap * nfft; i += kPfbThreads) coef[i] = a.coeffs[i];
+  // the lane's factors of the cross-lane stages, h = 16 >> s: a lane with
+  // bit h set takes (other - own) W_2h^(p mod h), the other other + own
+  float2 cw[5];
+  float sg[5];
+#pragma unroll
+  for (int s = 0; s < 5; ++s) {
+    const int h = 16 >> s;
+    const bool low = (p & h) != 0;
+    cw[s] = low ? twiddle(p & (h - 1), 2 * h) : make_float2(1.0f, 0.0f);
+    sg[s] = low ? -1.0f : 1.0f;
+  }
 
-  // ring position q holds sample p0 + q; the first (ntap - 1) * nfft are the
-  // rows before the tile's first window end slot
+  // ring row r % R holds samples p0 + r nfft ..; the first ntap - 1 rows are
+  // the ones before the tile's first window end slot
   const int64_t p0 = (e0 - a.ntap + 1) * nfft;
   for (int64_t q = tid; q < a.halo; q += kPfbThreads) {
-    ring[q & mask] = load_pair<L>(a, ch, p0 + q);
+    ring[q] = load_pair<L>(a, ch, p0 + q);
   }
 
-  double acc[kMaxPer][ns];
+  double acc[kBins][ns];
 #pragma unroll
-  for (int m = 0; m < kMaxPer; ++m) {
+  for (int b = 0; b < kBins; ++b) {
 #pragma unroll
-    for (int q = 0; q < ns; ++q) acc[m][q] = 0.0;
+    for (int q = 0; q < ns; ++q) acc[b][q] = 0.0;
   }
-  const int per = sp / kPfbThreads;
-  const int64_t nsteps = (e_end - e0 + a.w - 1) / a.w;
+  const int64_t nsteps = (e_end - e0 + W - 1) / W;
+  int base = 0;    // ring row of the step's first window: (st W) % R
   for (int64_t st = 0; st < nsteps; ++st) {
+    // 1. the step's rows ntap - 1 + st W .. into the ring
     const int64_t qbase = a.halo + st * sp;
     for (int i = tid; i < sp; i += kPfbThreads) {
-      ring[(qbase + i) & mask] = load_pair<L>(a, ch, p0 + qbase + i);
+      int row = base + a.ntap - 1 + (i >> a.log2n);
+      row -= row >= R ? R : 0;
+      ring[row * nfft + (i & (nfft - 1))] = load_pair<L>(a, ch, p0 + qbase + i);
     }
     __syncthreads();
-    // FIR: window j of the step starts at ring position st * sp + j * nfft
-    for (int i = tid; i < 2 * sp; i += kPfbThreads) {
-      const int pol = i >= sp;
-      const int rem = i - pol * sp;
-      const int n = rem & (nfft - 1);
-      const int64_t q0 = st * sp + rem;
-      float re = 0.0f, im = 0.0f;
-      for (int t = 0; t < a.ntap; ++t) {
-        const int2 v = ring[(q0 + static_cast<int64_t>(t) * nfft) & mask];
-        const int wv = pol ? v.y : v.x;
-        const float c = coef[t * nfft + n];
-        re += c * re16(wv);
-        im += c * im16(wv);
-      }
-      const int rev = a.log2n ? static_cast<int>(__brev(n) >> (32 - a.log2n))
-                              : 0;
-      buf[pol * sp + (rem - n) + rev] = make_float2(re, im);
-    }
-    __syncthreads();
-    // radix-2 DIT: 2 W FFTs of nfft points, nfft / 2 butterflies each
-    for (int h = 1; h < nfft; h <<= 1) {
-      const int stride = nfft / (2 * h);
-      for (int b = tid; b < sp; b += kPfbThreads) {
-        const int f = b / (nfft / 2), bb = b % (nfft / 2);
-        const int jj = bb % h;
-        const int i0 = f * nfft + (bb - jj) * 2 + jj;
-        const float2 w = tw[jj * stride];
-        const float2 u = buf[i0], v = buf[i0 + h];
-        const float2 wv = make_float2(w.x * v.x - w.y * v.y,
-                                      w.x * v.y + w.y * v.x);
-        buf[i0] = make_float2(u.x + wv.x, u.y + wv.y);
-        buf[i0 + h] = make_float2(u.x - wv.x, u.y - wv.y);
-      }
-      __syncthreads();
-    }
-    // detect: thread position i = window (i / nfft) and fine channel i % nfft
+    // 2. FFT units u = (window j, pol): G side by side per warp
+    for (int u = warp * G + (lane >> lp); u < 2 * W; u += kWarps * G) {
+      const int pol = u >= W, j = u - pol * W;
+      float2 v[kM];
 #pragma unroll
-    for (int m = 0; m < kMaxPer; ++m) {
-      if (m >= per) break;
-      const int i = tid + m * kPfbThreads;
-      const int64_t e = e0 + st * a.w + (i >> a.log2n);
+      for (int i = 0; i < kM; ++i) v[i] = make_float2(0.0f, 0.0f);
+      for (int t = 0; t < a.ntap; ++t) {
+        int row = base + j + t;
+        row -= row >= R ? R : 0;
+        const int2* rp = ring + row * nfft + p;
+        const float* cp = coef + t * nfft + p;
+#pragma unroll
+        for (int i = 0; i < kM; ++i) {
+          const int2 s2 = rp[i * 32];
+          const int wv = pol ? s2.y : s2.x;
+          const float c = cp[i * 32];
+          v[i].x += c * re16(wv);
+          v[i].y += c * im16(wv);
+        }
+      }
+      register_fft<kM>(v, twm);
+      if (kM > 1) {
+#pragma unroll
+        for (int i = 1; i < kM; ++i) {
+          v[i] = cmul(v[i], tw[bit_reverse(i, log2i(kM)) * 32 + p]);
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < 5; ++s) {
+        const int h = 16 >> s;
+        if (h >= P) continue;
+#pragma unroll
+        for (int i = 0; i < kM; ++i) {
+          const float2 o = make_float2(__shfl_xor_sync(0xffffffffu, v[i].x, h),
+                                       __shfl_xor_sync(0xffffffffu, v[i].y, h));
+          v[i] = cmul(make_float2(o.x + sg[s] * v[i].x, o.y + sg[s] * v[i].y),
+                      cw[s]);
+        }
+      }
+      float2* out = buf + pol * sp + j * nfft + p;
+#pragma unroll
+      for (int i = 0; i < kM; ++i) out[i * P] = v[i];
+    }
+    __syncthreads();
+    // 3. detect: thread position i = window (i / nfft), position i % nfft
+#pragma unroll
+    for (int r = 0; r < kPer; ++r) {
+      const int i = tid + r * kPfbThreads;
+      const int64_t e = e0 + st * W + (i >> a.log2n);
       if (e >= e_end || e < first) continue;
       const float2 x = buf[i], y = buf[sp + i];
       const float pxx = x.x * x.x + x.y * x.y;
       const float pyy = y.x * y.x + y.y * y.y;
+      const int b = r % kBins;
       if constexpr (kStokes) {
-        acc[m][0] += static_cast<double>(pxx + pyy);
-        acc[m][1] += static_cast<double>(pxx - pyy);
-        acc[m][2] += static_cast<double>(2.0f * (x.x * y.x + x.y * y.y));
-        acc[m][3] += static_cast<double>(2.0f * (x.y * y.x - x.x * y.y));
+        acc[b][0] += static_cast<double>(pxx + pyy);
+        acc[b][1] += static_cast<double>(pxx - pyy);
+        acc[b][2] += static_cast<double>(2.0f * (x.x * y.x + x.y * y.y));
+        acc[b][3] += static_cast<double>(2.0f * (x.y * y.x - x.x * y.y));
       } else {
-        acc[m][0] += static_cast<double>(pxx + pyy);
+        acc[b][0] += static_cast<double>(pxx + pyy);
       }
     }
+    base += W;
+    base -= base >= R ? R : 0;
   }
 
+  // position i P + p holds bin brev_m(i) + m brev_P(p)
+  const auto bin = [&](int pos) {
+    return bit_reverse(pos >> lp, log2i(kM)) +
+           kM * bit_reverse(pos & (P - 1), lp);
+  };
   double* out = a.partial + (tile * a.nchan + ch) * ns * nfft;
-  if (a.w == 1) {
+  if (nfft >= kPfbThreads) {
 #pragma unroll
-    for (int m = 0; m < kMaxPer; ++m) {
-      if (m >= per) break;
+    for (int b = 0; b < kBins; ++b) {
+      const int k = bin(tid + b * kPfbThreads);
 #pragma unroll
-      for (int q = 0; q < ns; ++q) out[q * nfft + tid + m * kPfbThreads] =
-          acc[m][q];
+      for (int q = 0; q < ns; ++q) out[q * nfft + k] = acc[b][q];
     }
     return;
   }
-  // W windows per step share a fine channel: add them in a fixed order
+  // 256 / nfft threads share a position: add them in a fixed order
 #pragma unroll
   for (int q = 0; q < ns; ++q) red[q * kPfbThreads + tid] = acc[0][q];
   __syncthreads();
   if (tid < nfft) {
+    const int k = bin(tid);
 #pragma unroll
     for (int q = 0; q < ns; ++q) {
       double s = 0.0;
-      for (int j = 0; j < a.w; ++j) s += red[q * kPfbThreads + j * nfft + tid];
-      out[q * nfft + tid] = s;
+      for (int c = tid; c < kPfbThreads; c += nfft) {
+        s += red[q * kPfbThreads + c];
+      }
+      out[q * nfft + k] = s;
     }
   }
 }
@@ -270,16 +369,31 @@ __global__ void pfb_finish_kernel(const double* __restrict__ partial,
   out[i] = static_cast<float>(d > 0.0 ? s / d : s);
 }
 
-template <class L, bool kStokes>
-int launch_pfb(const PfbArgs& a, int64_t nblocks, size_t smem,
-               cudaStream_t stream) {
-  auto kernel = pfb_kernel<L, kStokes>;
+template <class L, bool kStokes, int kM>
+int launch_pfb_m(const PfbArgs& a, int64_t nblocks, size_t smem,
+                 cudaStream_t stream) {
+  auto kernel = pfb_kernel<L, kStokes, kM>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   kernel<<<static_cast<unsigned>(nblocks), kPfbThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the instantiation of nfft's points per lane, max(nfft / 32, 1)
+template <class L, bool kStokes>
+int launch_pfb(const PfbArgs& a, int64_t nblocks, size_t smem,
+               cudaStream_t stream) {
+  switch (a.nfft >> 5) {
+    case 0:
+    case 1: return launch_pfb_m<L, kStokes, 1>(a, nblocks, smem, stream);
+    case 2: return launch_pfb_m<L, kStokes, 2>(a, nblocks, smem, stream);
+    case 4: return launch_pfb_m<L, kStokes, 4>(a, nblocks, smem, stream);
+    case 8: return launch_pfb_m<L, kStokes, 8>(a, nblocks, smem, stream);
+    case 16: return launch_pfb_m<L, kStokes, 16>(a, nblocks, smem, stream);
+    default: return launch_pfb_m<L, kStokes, 32>(a, nblocks, smem, stream);
+  }
 }
 
 }  // namespace
@@ -290,7 +404,8 @@ extern "C" {
 // -> partial (nout * nsub, nchk * 7, ns, nfft) float64 sums, ns = 4 (Stokes)
 // or 1. coeffs (ntap, nfft) float32; hist (nchk * 14, (ntap - 1) * nfft, 2)
 // int16 or null (one-shot). ts: window end slots per tile, a multiple of
-// max(256 / nfft, 1); nsub = ceil(wpg / ts) tiles per spectrum.
+// the step's max(4, 1024 / nfft) windows; nsub = ceil(wpg / ts) tiles per
+// spectrum.
 int pafb2p_pfb(const void* x, int rows, int64_t ndf, int64_t nchk,
                int64_t nfft, int64_t ntap, int64_t nout, int stokes,
                const void* coeffs, const void* hist, int64_t ts, int64_t nsub,
@@ -318,18 +433,17 @@ int pafb2p_pfb(const void* x, int rows, int64_t ndf, int64_t nchk,
   while ((1 << a.log2n) < a.nfft) ++a.log2n;
   a.ntap = static_cast<int>(ntap);
   a.halo = (ntap - 1) * nfft;
-  a.sp = a.nfft > kMinStep ? a.nfft : kMinStep;
+  a.sp = kMinWindows * a.nfft > kMinStep ? kMinWindows * a.nfft : kMinStep;
   a.w = a.sp / a.nfft;
   if (ts <= 0 || ts % a.w || nsub != (a.wpg + ts - 1) / ts) {
     return static_cast<int>(bad);
   }
   a.ts = ts;
   a.nsub = nsub;
-  a.cap = 1;
-  while (a.cap < a.halo + a.sp) a.cap <<= 1;
+  a.rows = a.ntap - 1 + a.w;
   const int64_t nblocks = nout * nsub * a.nchan;
   if (nblocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const size_t smem = pfb_smem(a.cap, a.sp, a.nfft, a.ntap, stokes ? 4 : 1);
+  const size_t smem = pfb_smem(a.rows, a.sp, a.nfft, a.ntap, stokes ? 4 : 1);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows) {
     return stokes ? launch_pfb<PfbRows, true>(a, nblocks, smem, s)

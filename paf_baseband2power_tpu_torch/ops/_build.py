@@ -159,39 +159,43 @@ def _run_jobs(jobs: list[tuple[list[str], str]]) -> list[str]:
     return [stderr + stdout for stderr, stdout in outs]
 
 
+_SIGNATURES = {
+    "pafb2p_pfb": "p i l l l l l i p p l l p p",
+    "pafb2p_pfb_finish": "p p l l l l l i d d p",
+    "pafb2p_power_wire": "p l l l p p",
+    "pafb2p_power_rows": "p l l l p p",
+    "pafb2p_power_finish": "p p l l d p",
+    "pafb2p_stokes_wire": "p l l l p p",
+    "pafb2p_stokes_rows": "p l l l p p",
+    "pafb2p_stokes_finish": "p p l l d p",
+    "pafb2p_probe_micro": "p l l i i i p p",
+    "pafb2p_probe_planes": "p l i l i i i p p p",
+    "pafb2p_probe_karatsuba": "p l l i i p p p p p p",
+    "pafb2p_probe_tile_sum": "p p l l l p",
+}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_int64,
+           "d": ctypes.c_double}
+
+
+def bind_library(path: str) -> ctypes.CDLL:
+    """Load a kernels' library with the C signature of every entry point
+    it has declared."""
+    lib = ctypes.CDLL(path)
+    for name, sig in _SIGNATURES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = [_CTYPES[c] for c in sig.split()]
+            fn.restype = ctypes.c_int
+    lib.pafb2p_error_string.argtypes = [ctypes.c_int]
+    lib.pafb2p_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def load_library() -> ctypes.CDLL:
     """Build (first use) and load the kernels' library, with every C
     signature declared."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
-            i64, ptr, f64 = ctypes.c_int64, ctypes.c_void_p, ctypes.c_double
-            i32 = ctypes.c_int
-            sigs = {
-                "pafb2p_pfb": [ptr, i32, i64, i64, i64, i64, i64, i32, ptr,
-                               ptr, i64, i64, ptr, ptr],
-                "pafb2p_pfb_finish": [ptr, ptr, i64, i64, i64, i64, i64, i32,
-                                      f64, f64, ptr],
-                "pafb2p_power_wire": [ptr, i64, i64, i64, ptr, ptr],
-                "pafb2p_power_rows": [ptr, i64, i64, i64, ptr, ptr],
-                "pafb2p_power_finish": [ptr, ptr, i64, i64, f64, ptr],
-                "pafb2p_stokes_wire": [ptr, i64, i64, i64, ptr, ptr],
-                "pafb2p_stokes_rows": [ptr, i64, i64, i64, ptr, ptr],
-                "pafb2p_stokes_finish": [ptr, ptr, i64, i64, f64, ptr],
-                "pafb2p_probe_micro": [ptr, i64, i64, i32, i32, i32, ptr,
-                                       ptr],
-                "pafb2p_probe_planes": [ptr, i64, i32, i64, i32, i32, i32,
-                                        ptr, ptr, ptr],
-                "pafb2p_probe_karatsuba": [ptr, i64, i64, i32, i32, ptr, ptr,
-                                           ptr, ptr, ptr, ptr],
-                "pafb2p_probe_tile_sum": [ptr, ptr, i64, i64, i64, ptr],
-            }
-            for name, args in sigs.items():
-                fn = getattr(lib, name)
-                fn.argtypes = args
-                fn.restype = ctypes.c_int
-            lib.pafb2p_error_string.argtypes = [ctypes.c_int]
-            lib.pafb2p_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            _lib = bind_library(build())
         return _lib

@@ -30,14 +30,19 @@ from .cuda_power import _on_cpu, _raise, launches
 # what the kernel takes; the plain version takes any nfft and ntap >= 1
 CUDA_NFFTS = tuple(2 ** i for i in range(1, 11))
 CUDA_MAX_NTAP = 8
-_MIN_STEP = 256          # samples per pol per kernel step (csrc/pfb.cu)
-_STEPS_PER_TILE = 32     # steps per block: the tile of window end slots
+_TILE_SAMPLES = 8192     # samples per pol in a block's tile, at least
+_TILE_WINDOWS = 32       # windows in a block's tile, at least
 
 
 def tile_slots(nfft: int) -> int:
-    """Window end slots per kernel block: 32 steps of
-    ``max(256 / nfft, 1)`` windows."""
-    return _STEPS_PER_TILE * max(_MIN_STEP // nfft, 1)
+    """Window end slots per kernel block: ``max(8192 / nfft, 32)``."""
+    return max(_TILE_SAMPLES // nfft, _TILE_WINDOWS)
+
+
+def step_windows(nfft: int) -> int:
+    """Windows per step of the kernel (``csrc/pfb.cu``): at least 4, one
+    FFT per warp and pol, and at least 1024 samples per pol."""
+    return max(4, 1024 // nfft)
 
 
 def kernel_refuses(nfft: int, ntap: int) -> str | None:
@@ -93,13 +98,15 @@ def _device_partials(shape: tuple, device: torch.device) -> torch.Tensor:
 
 def _launch(block: torch.Tensor, layout: str, nfft: int, ntap: int,
             window: str, nout: int, stokes: bool, mean: bool, shift: bool,
-            history) -> torch.Tensor:
+            history, lib=None) -> torch.Tensor:
     """Run ``pafb2p_pfb`` and its finish kernel on a CUDA block; returns
-    float32 ``(nout, ns, nchan * nfft)``."""
+    float32 ``(nout, ns, nchan * nfft)``. ``lib``: another build of
+    ``csrc/pfb.cu`` with the same C interface (``probes/pfb_compare.py``),
+    else the package's."""
     _, ndf, nchk = PF.block_geometry(block, layout)
     _, wpg = PF.spectra_geometry(ndf * NSAMP_DF, nfft, ntap, nout)
     _check_kernel_shape(nfft, ntap)
-    lib = load_library()
+    lib = lib or load_library()
     x = (block.reshape(ndf, -1) if layout == "wire"
          else block.reshape(-1, ndf, 2 * NSAMP_DF))
     if x.data_ptr() % 16:

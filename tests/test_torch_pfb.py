@@ -458,7 +458,62 @@ def test_kernel_coeffs_and_partials_are_cached():
     assert q is not p and q.dtype == torch.float64
 
 
+def _brev(x: int, bits: int) -> int:
+    return int(format(x, f"0{bits}b")[::-1], 2) if bits else 0
+
+
+def _warp_fft_model(x):
+    """numpy model of one FFT of ``csrc/pfb.cu:pfb_kernel``: lane p of P =
+    min(nfft, 32) holds points p + P j, j < m = nfft / P; an m-point
+    radix-2 DIF in its registers (bit-reversed out), the twiddles
+    W_nfft^(p k1), a P-point DIF across lanes whose stage h pairs lanes
+    p and p ^ h. Returns the FFT as the kernel writes it (position i P + p
+    holds lane p's register i) and the bin of each position."""
+    nfft = x.shape[-1]
+    P = min(nfft, 32)
+    m = nfft // P
+    lp, lm = P.bit_length() - 1, m.bit_length() - 1
+    a = x.reshape(m, P).T.astype(np.complex128)          # a[p, j]
+    for s in range(lm):
+        half = m >> (s + 1)
+        for b in range(0, m, 2 * half):
+            for i in range(half):
+                u, v = a[:, b + i].copy(), a[:, b + i + half].copy()
+                a[:, b + i] = u + v
+                a[:, b + i + half] = (u - v) * np.exp(-2j * np.pi * (i << s)
+                                                      / m)
+    k1 = np.array([_brev(i, lm) for i in range(m)])
+    lanes = np.arange(P)
+    a *= np.exp(-2j * np.pi * np.outer(lanes, k1) / nfft)
+    h = P // 2
+    while h >= 1:
+        other = a[lanes ^ h]
+        low = (lanes & h) != 0
+        w = np.exp(-2j * np.pi * (lanes & (h - 1)) / (2 * h))
+        a = np.where(low[:, None], (other - a) * w[:, None], a + other)
+        h //= 2
+    written = a.T.reshape(-1)                            # position i P + p
+    bins = np.array([_brev(pos // P, lm) + m * _brev(pos % P, lp)
+                     for pos in range(nfft)])
+    return written, bins
+
+
+@pytest.mark.parametrize("nfft", CF.CUDA_NFFTS)
+def test_warp_fft_index_map_matches_numpy_fft(nfft):
+    """The kernel's register/lane decomposition, and the bin it assigns to
+    each written position, give ``np.fft.fft``."""
+    rng = np.random.default_rng(nfft)
+    x = rng.standard_normal(nfft) + 1j * rng.standard_normal(nfft)
+    written, bins = _warp_fft_model(x)
+    assert sorted(bins) == list(range(nfft))
+    want = np.fft.fft(x)
+    np.testing.assert_allclose(written, want[bins], rtol=0,
+                               atol=1e-12 * np.abs(want).max())
+
+
 def test_tile_slots_cover_whole_steps():
     for nfft in CF.CUDA_NFFTS:
-        ts = CF.tile_slots(nfft)
-        assert ts % max(256 // nfft, 1) == 0 and ts * nfft >= 32 * 256
+        ts, w = CF.tile_slots(nfft), CF.step_windows(nfft)
+        assert ts % w == 0 and ts * nfft >= 32 * 256
+        # every warp (8) has one FFT (window, pol) per step, or 32 / nfft
+        assert 2 * w % 8 == 0 and 2 * w * nfft % (8 * 32) == 0
