@@ -17,9 +17,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
   3. power and Stokes kernels vs the plain int64 versions at 256 x 48
      (nout 1/8/256) and 200 x 48 (nout 1/2), wire and rows, mean on and
      off: bit-equal; the PFB kernel vs its plain version in float64 at the
-     same two sizes (nfft 32/128/256/1024, ntap 1/4/8, nout 1 and more,
+     same two sizes (nfft 32-1024, ntap 1/4/8 at 1024, nout 1 and more,
      power and Stokes, mean on and off, wire and rows, with and without a
-     carry): within 2e-5, peak-normalized;
+     carry): within 2e-5, peak-normalized, and two calls bit-equal; the
+     shapes the kernel does not take (nfft 2048, ntap 12) through the
+     executor's torch.fft route, counted as ``pfb_torch``;
   4. kernels vs their plain PyTorch versions at the production 8192 x 48
      block, full-range int16 drawn on the device, an all -32768 block and,
      for Stokes, a block whose y is x turned by 90 degrees (V = -I):
@@ -27,7 +29,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      nout 1 and 64, vs its plain version in float64: within 2e-5;
   5. the main paths through the port's CLI: recordings written with the
      port's ``paf_gen`` (1024 x 48, wire and ORDER SERIES) checked against
-     the plain version, then recordings of full 8192 x 48 blocks checked
+     the plain version (and ``--pfb 2048``, the torch.fft route, on the
+     wire one), then recordings of full 8192 x 48 blocks checked
      against the plain versions: the power path (wire, wire x 64 spectra,
      ORDER SERIES), the Stokes path (the same three with ``--stokes``,
      NPOL 4 headers) and the PFB path (``--pfb 128`` and ``--pfb 1024
@@ -104,14 +107,20 @@ PATHS = {"power": [k for k in KERNELS if k.startswith("baseband2power")],
          "probes": ["micro_cuda", "planes_cuda", "karatsuba_planar_cuda"]}
 CLI_PATHS = ("power", "stokes", "pfb")     # driven through the CLI
 # PFB cases of phase 3: nfft, ntap, nout, stokes, mean (each on wire, on
-# rows for nfft 128 and 1024, with and without a carry, where the frame
-# count allows the shape)
+# rows for nfft 128-1024, with and without a carry, where the frame count
+# allows the shape)
 PFB_CASES = [(32, 4, 1, False, False), (32, 8, 8, True, True),
+             (64, 2, 2, False, True), (64, 4, 1, True, False),
              (128, 1, 1, False, True), (128, 4, 4, True, False),
              (128, 8, 2, False, True), (128, 4, 64, True, True),
              (256, 4, 1, True, True), (256, 8, 4, False, False),
-             (1024, 4, 1, False, False), (1024, 8, 2, True, True),
-             (1024, 1, 1, True, False)]
+             (512, 4, 1, False, True), (512, 8, 2, True, False),
+             (1024, 4, 1, False, False), (1024, 4, 1, True, True),
+             (1024, 8, 2, True, True), (1024, 8, 1, False, True),
+             (1024, 1, 1, True, False), (1024, 1, 1, False, True)]
+# shapes the CUDA kernel does not take, which go through torch.fft on the
+# card: nfft, ntap, nout, stokes
+PFB_TORCH_CASES = [(2048, 4, 1, False), (128, 12, 2, True)]
 
 
 def log(*a) -> None:
@@ -195,20 +204,24 @@ def ptxas_lines(report: str) -> list[str]:
     return lines
 
 
-def run_pfb(blk, nfft, ntap, nout, stokes, mean, carry, layout):
+def run_pfb(blk, nfft, ntap, nout, stokes, mean, carry, layout,
+            plain=True):
     """The PFB kernel (``pfb_power_cuda`` for nout 1 power, else
-    ``pfb_spectra_cuda``) and its plain version in float64 on one block;
-    returns ``(wrapper name, kernel result, plain result)``."""
+    ``pfb_spectra_cuda``) and, with ``plain``, its plain version in float64
+    on one block; returns ``(wrapper name, kernel result, plain result or
+    None)``."""
     from paf_baseband2power_tpu_torch.ops import cuda_pfb as CF
     from paf_baseband2power_tpu_torch.ops import pfb as PF
 
     kw = dict(mean=mean, history=carry, layout=layout)
     if nout == 1 and not stokes:
         return ("pfb_power_cuda", CF.pfb_power_cuda(blk, nfft, ntap, **kw),
-                PF.pfb_power(blk, nfft, ntap, dtype=torch.float64, **kw))
+                PF.pfb_power(blk, nfft, ntap, dtype=torch.float64, **kw)
+                if plain else None)
     kw.update(nout=nout, stokes=stokes)
     return ("pfb_spectra_cuda", CF.pfb_spectra_cuda(blk, nfft, ntap, **kw),
-            PF.pfb_spectra(blk, nfft, ntap, dtype=torch.float64, **kw))
+            PF.pfb_spectra(blk, nfft, ntap, dtype=torch.float64, **kw)
+            if plain else None)
 
 
 def run_cli(cli, argv: list[str]) -> dict:
@@ -218,6 +231,43 @@ def run_cli(cli, argv: list[str]) -> dict:
         rc = cli.main(argv + ["--stats-json"])
     check(rc == 0, f"CLI {argv} exit code {rc}")
     return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def pfb_torch_cli(cli, path: str, ndf: int, tmp: str,
+                  dev: torch.device) -> str:
+    """``--pfb 2048`` through the CLI on the ``paf_gen`` wire recording at
+    ``path`` (3 blocks of ``ndf`` x 48, seeds 5-7): the torch.fft route,
+    each record within 2e-5 of the plain streaming version in float64;
+    returns a summary."""
+    from paf_baseband2power_tpu_torch.ops import cuda_power as CP
+    from paf_baseband2power_tpu_torch.ops import frame as F
+    from paf_baseband2power_tpu_torch.ops import pfb as PF
+    from paf_baseband2power_tpu_torch.probes._common import peak_err
+
+    out = os.path.join(tmp, "pfb-2048.dada")
+    CP.launches.clear()
+    stats = run_cli(cli, ["-a", path, "-b", out, "--ndf", str(ndf),
+                          "--nchk", str(NCHK), "--pfb", "2048"])
+    launched = dict(CP.launches)
+    hdr, recs = read_records(out, (NCHK * 7 * 2048,))
+    check(hdr["PFB_NFFT"] == "2048" and len(recs) == 3,
+          f"--pfb 2048: 3 records with PFB_NFFT 2048 ({len(recs)})")
+    check(set(launched) == {"pfb_torch"} and launched["pfb_torch"] >= 3,
+          f"--pfb 2048 ran the torch.fft route only: {launched}")
+    step = PF.make_streaming_pfb(2048, 4, dtype=torch.float64)
+    carry, worst = None, 0.0
+    for i, rec in enumerate(recs):
+        blk = torch.from_numpy(F.synthetic_block(
+            rng=5 + i, ndf=ndf, nchk=NCHK).reshape(ndf, -1)).to(dev)
+        want, carry = step(blk, carry)
+        e = peak_err(torch.from_numpy(np.array(rec)), want.cpu())[1]
+        check(e < BOUND_PFB, f"--pfb 2048 record {i}: {e:.3e} "
+              "peak-normalized against the plain streaming version")
+        worst = max(worst, e)
+    os.remove(out)
+    return (f"3 records within {worst:.3e} (peak-normalized) of the plain "
+            f"streaming version in float64, {stats['realtime_x']:.3f}x real "
+            f"time, launches {launched}")
 
 
 def read_records(path: str, shape: tuple) -> tuple[dict, list[np.ndarray]]:
@@ -320,6 +370,8 @@ def main() -> int:
     for line in ptxas_lines(_build.ptxas_report(lib_path)) or [
             "no report: the library was built before this run"]:
         log(f"[2] ptxas {line}")
+        check(not line.startswith("pfb.cu") or " 0 bytes spill stores" in line,
+              f"no spills in the PFB kernels: {line}")
 
     # --- 3. kernels vs the plain int64 versions at 256 x 48 (and 200 x 48)
     # 256 frames: nout 1/8/256 as in the main path's shapes; 200 frames:
@@ -395,7 +447,7 @@ def main() -> int:
         for nfft, ntap, nout, stokes, mean in PFB_CASES:
             if nsamp % nfft or nsamp // nfft % nout:
                 continue
-            for layout in (("wire", "rows") if nfft in (128, 1024)
+            for layout in (("wire", "rows") if nfft in PF.ROWS_NFFTS
                            else ("wire",)):
                 view = ((lambda t: t) if layout == "wire"
                         else (lambda t: t.view(NCHK * 14, ndf, 256)))
@@ -403,7 +455,12 @@ def main() -> int:
                               PF.pfb_history(view(prev), nfft, ntap, layout)):
                     name, got, want = run_pfb(view(x), nfft, ntap, nout,
                                               stokes, mean, carry, layout)
-                    calls[name] += 1
+                    _, again, _ = run_pfb(view(x), nfft, ntap, nout, stokes,
+                                          mean, carry, layout, plain=False)
+                    calls[name] += 2
+                    check(torch.equal(got, again),
+                          f"PFB {ndf} frames {layout} nfft={nfft} "
+                          f"ntap={ntap}: two calls bit-equal")
                     e = peak_err(got, want)
                     pfb_err[name] = [max(a, b) for a, b in
                                      zip(pfb_err[name], e)]
@@ -415,9 +472,39 @@ def main() -> int:
     check(dict(CP.launches) == dict(calls),
           f"PFB launch counters {dict(CP.launches)} match calls "
           f"{dict(calls)}")
-    log(f"[3] PFB 256 x 48 and 200 x 48, {sum(calls.values())} cases: "
-        f"within {BOUND_PFB} of the float64 plain version (max abs, "
-        f"peak-normalized: {pfb_err})")
+    log(f"[3] PFB 256 x 48 and 200 x 48, {sum(calls.values()) // 2} cases, "
+        f"each twice and bit-equal: within {BOUND_PFB} of the float64 plain "
+        f"version (max abs, peak-normalized: {pfb_err})")
+    # the shapes the kernel does not take: the executor's torch.fft route,
+    # two blocks with the carry between them
+    from paf_baseband2power_tpu_torch.runtime.pipeline import PowerPipeline
+
+    gen.manual_seed(256)
+    blocks = [torch.randint(-32768, 32768, (256, NCHK * 3584),
+                            dtype=torch.int16, device=dev, generator=gen)
+              for _ in range(2)]
+    for nfft, ntap, nout, stokes in PFB_TORCH_CASES:
+        pipe = PowerPipeline(dev, nout=nout, stokes=stokes, pfb_nfft=nfft,
+                             pfb_ntap=ntap)
+        check("torch.fft" in pipe._mode(), f"nfft={nfft} ntap={ntap}: "
+              f"torch.fft route, not {pipe._mode()}")
+        plain = PF.make_streaming_spectra(nfft, ntap, nout=nout, stokes=stokes,
+                                          dtype=torch.float64)
+        carry = None
+        CP.launches.clear()
+        for blk in blocks:
+            want, carry = plain(blk, carry)
+            got = pipe.power(blk)
+            e = peak_err(got, want if stokes or nout > 1 else want[0])
+            check(e[1] < BOUND_PFB, f"torch.fft route nfft={nfft} ntap={ntap}"
+                  f": {e[1]:.3e} peak-normalized against float64")
+        check(dict(CP.launches) == {"pfb_torch": 2},
+              f"torch.fft route counted: {dict(CP.launches)}")
+        log(f"[3] PFB nfft={nfft} ntap={ntap} nout={nout} stokes={stokes}, "
+            f"2 blocks of 256 x 48 with their carry: {pipe._mode()}, "
+            f"{e[1]:.3e} peak-normalized against float64, "
+            f"launches {dict(CP.launches)}")
+    del blocks
 
     # --- 4. kernels vs plain versions at 8192 x 48 ------------------------
     big = torch.empty((FULL_NDF, NCHK * P.LANES_PER_CHUNK), dtype=torch.int16,
@@ -562,9 +649,13 @@ def main() -> int:
                                       nchk=NCHK).reshape(ndf, -1))).numpy()
                 check(np.array_equal(rec, want),
                       f"{layout} record {i} bit-equal to the plain version")
+            if layout == "wire":
+                pfb_2048 = pfb_torch_cli(cli, bb, ndf, tmp, dev)
             os.remove(bb)
         log("[5a] CLI on paf_gen recordings 3 x 1024 x 48, wire and ORDER "
             "SERIES: every record bit-equal to the plain int64 version")
+        log(f"[5a] CLI --pfb 2048 on the wire recording (torch.fft route): "
+            f"{pfb_2048}")
 
         # 5b. full 8192 x 48 blocks, recorded from device-drawn data; one
         # recording on disk at a time (8.5 GB). Writing one runs only the

@@ -10,7 +10,8 @@
 // The TPU corner-turned the wire block into series rows because Mosaic could
 // not read it, split its fp32 DFT into three bf16 MXU passes and tiled to
 // (8, 128); none of that carries over. Here any power-of-two nfft from 2 to
-// 1024, 1 <= ntap <= 8 and any nout the golden takes (wpg >= ntap - 1) work.
+// 1024 (series rows 128-1024, the JAX package's rows rule), 1 <= ntap <= 8
+// and any nout the golden takes (wpg >= ntap - 1) work.
 //
 // Work: one block of 8 warps per (coarse channel, tile of window end slots).
 // Both pols of the channel go through the block together: a wire load of 8
@@ -53,6 +54,9 @@
 // one read of each spectrum, 2 log2(P) lane shuffles per point and two
 // barriers per step; the first version of this kernel, with log2(nfft)
 // shared-memory radix-2 passes and a barrier each, took 19x its bound.
+// This one takes 5x at nfft 128 and 12x at nfft 1024 Stokes on an H100
+// (PERF.md): at nfft 1024 only one block of 8 warps fits an SM (153 KB of
+// shared memory, 195 registers), so a step's loads and FFTs do not overlap.
 //
 // Accuracy: fp32 FIR and FFT (about log2(nfft) rounding steps, well under
 // the 2e-5 peak-normalized bound against the float64 reference); sums over
@@ -60,6 +64,7 @@
 // float. No fast-math.
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -140,29 +145,31 @@ __device__ __forceinline__ int bit_reverse(int x, int bits) {
               : 0;
 }
 
-constexpr int log2i(int n) { return n > 1 ? 1 + log2i(n / 2) : 0; }
+__host__ __device__ constexpr int log2i(int n) {
+  return n > 1 ? 1 + log2i(n / 2) : 0;
+}
 
 // In-register M-point radix-2 decimation in frequency: natural order in,
-// bit-reversed out (a[i] = A[brev_M(i)]). twm[q] = W_M^q, q < M / 2.
-template <int M>
+// bit-reversed out (a[i] = A[brev_M(i)]). twm[q] = W_M^q, q < M / 2. One
+// loop of constant trip count per stage, so every index is known at compile
+// time and a stays in registers.
+template <int M, int S = 0>
 __device__ __forceinline__ void register_fft(float2 (&a)[M],
                                              const float2* twm) {
+  if constexpr ((1 << S) < M) {
+    constexpr int half = M >> (S + 1);
 #pragma unroll
-  for (int s = 0; s < log2i(M); ++s) {
-    const int half = M >> (s + 1);
-#pragma unroll
-    for (int b = 0; b < M; b += 2 * half) {
-#pragma unroll
-      for (int i = 0; i < half; ++i) {
-        const float2 u = a[b + i], v = a[b + i + half];
-        const float2 d = make_float2(u.x - v.x, u.y - v.y);
-        const int q = i << s;                 // W_(2 half)^i = W_M^q
-        a[b + i] = make_float2(u.x + v.x, u.y + v.y);
-        a[b + i + half] = q == 0 ? d
-                          : 4 * q == M ? make_float2(d.y, -d.x)
-                                       : cmul(d, twm[q]);
-      }
+    for (int k = 0; k < M / 2; ++k) {
+      const int i = k % half, b = k / half * 2 * half;
+      const float2 u = a[b + i], v = a[b + i + half];
+      const float2 d = make_float2(u.x - v.x, u.y - v.y);
+      const int q = i << S;                   // W_(2 half)^i = W_M^q
+      a[b + i] = make_float2(u.x + v.x, u.y + v.y);
+      a[b + i + half] = q == 0 ? d
+                        : 4 * q == M ? make_float2(d.y, -d.x)
+                                     : cmul(d, twm[q]);
     }
+    register_fft<M, S + 1>(a, twm);
   }
 }
 
@@ -171,15 +178,15 @@ __device__ __forceinline__ void register_fft(float2 (&a)[M],
 inline size_t pfb_smem(int rows, int sp, int nfft, int ntap, int ns) {
   return sizeof(int2) * rows * nfft + sizeof(float2) * 2 * sp +
          sizeof(double) * kPfbThreads * ns +
-         sizeof(float2) * (nfft + kMaxNfft / 64) +
+         sizeof(float2) * (nfft + kMaxNfft / 64 + 5 * 32) +
          sizeof(float) * ntap * nfft;
 }
 
 // One block per (channel, tile); blockIdx.x = tile * nchan + channel, so the
 // 7 channels of a chunk run side by side. kM = max(nfft / 32, 1) points per
-// lane.
+// lane. The body of the two kernels below.
 template <class L, bool kStokes, int kM>
-__global__ void __launch_bounds__(kPfbThreads) pfb_kernel(PfbArgs a) {
+__device__ __forceinline__ void pfb_body(const PfbArgs& a) {
   constexpr int ns = kStokes ? 4 : 1;
   // positions per thread and step (sp / 256), and distinct ones (bins)
   constexpr int kPer = kM / 2 > 4 ? kM / 2 : 4;
@@ -191,7 +198,8 @@ __global__ void __launch_bounds__(kPfbThreads) pfb_kernel(PfbArgs a) {
   double* red = reinterpret_cast<double*>(buf + 2 * sp);     // ns x threads
   float2* tw = reinterpret_cast<float2*>(red + kPfbThreads * ns);  // nfft
   float2* twm = tw + nfft;                                   // kM / 2
-  float* coef = reinterpret_cast<float*>(twm + kMaxNfft / 64);  // ntap x nfft
+  float2* tws = twm + kMaxNfft / 64;                         // 5 x 32
+  float* coef = reinterpret_cast<float*>(tws + 5 * 32);      // ntap x nfft
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int P = kM > 1 ? 32 : nfft;           // lanes per FFT
@@ -205,23 +213,18 @@ __global__ void __launch_bounds__(kPfbThreads) pfb_kernel(PfbArgs a) {
   const int64_t e_end = min(e0 + a.ts, (g + 1) * a.wpg);
   const int64_t first = a.hist != nullptr ? 0 : a.ntap - 1;
 
-  // tw[k1 * 32 + p] = W_nfft^(p k1) (kM > 1), twm[q] = W_kM^q
+  // tw[k1 * 32 + p] = W_nfft^(p k1) (kM > 1), twm[q] = W_kM^q; tws[s * 32
+  // + p]: lane p's factor in the cross-lane stage h = 16 >> s, where a lane
+  // with bit h set takes (other - own) W_2h^(p mod h), the other other + own
   for (int i = tid; i < (kM > 1 ? nfft : 0); i += kPfbThreads) {
     tw[i] = twiddle((i & 31) * (i >> 5), nfft);
   }
   for (int i = tid; i < kM / 2; i += kPfbThreads) twm[i] = twiddle(i, kM);
-  for (int i = tid; i < a.ntap * nfft; i += kPfbThreads) coef[i] = a.coeffs[i];
-  // the lane's factors of the cross-lane stages, h = 16 >> s: a lane with
-  // bit h set takes (other - own) W_2h^(p mod h), the other other + own
-  float2 cw[5];
-  float sg[5];
-#pragma unroll
-  for (int s = 0; s < 5; ++s) {
-    const int h = 16 >> s;
-    const bool low = (p & h) != 0;
-    cw[s] = low ? twiddle(p & (h - 1), 2 * h) : make_float2(1.0f, 0.0f);
-    sg[s] = low ? -1.0f : 1.0f;
+  for (int i = tid; i < 5 * 32; i += kPfbThreads) {
+    const int h = 16 >> (i >> 5), l = i & 31;
+    tws[i] = l & h ? twiddle(l & (h - 1), 2 * h) : make_float2(1.0f, 0.0f);
   }
+  for (int i = tid; i < a.ntap * nfft; i += kPfbThreads) coef[i] = a.coeffs[i];
 
   // ring row r % R holds samples p0 + r nfft ..; the first ntap - 1 rows are
   // the ones before the tile's first window end slot
@@ -278,12 +281,13 @@ __global__ void __launch_bounds__(kPfbThreads) pfb_kernel(PfbArgs a) {
       for (int s = 0; s < 5; ++s) {
         const int h = 16 >> s;
         if (h >= P) continue;
+        const float2 w = tws[s * 32 + p];
+        const float sg = p & h ? -1.0f : 1.0f;
 #pragma unroll
         for (int i = 0; i < kM; ++i) {
           const float2 o = make_float2(__shfl_xor_sync(0xffffffffu, v[i].x, h),
                                        __shfl_xor_sync(0xffffffffu, v[i].y, h));
-          v[i] = cmul(make_float2(o.x + sg[s] * v[i].x, o.y + sg[s] * v[i].y),
-                      cw[s]);
+          v[i] = cmul(make_float2(o.x + sg * v[i].x, o.y + sg * v[i].y), w);
         }
       }
       float2* out = buf + pol * sp + j * nfft + p;
@@ -369,10 +373,29 @@ __global__ void pfb_finish_kernel(const double* __restrict__ partial,
   out[i] = static_cast<float>(d > 0.0 ? s / d : s);
 }
 
+// nfft <= 128: ptxas's own choice of registers (44-64, no spills, 4-5
+// blocks per SM). nfft >= 256: a minimum of one block per SM lets the
+// 8-32-point register FFTs have the registers they need (94-195, 1-2 blocks
+// per SM; at nfft 1024 shared memory allows one anyway); without it ptxas
+// spilled some instantiations to keep to 64 or 128 registers.
+template <class L, bool kStokes, int kM>
+__global__ void __launch_bounds__(kPfbThreads) pfb_kernel(PfbArgs a) {
+  pfb_body<L, kStokes, kM>(a);
+}
+template <class L, bool kStokes, int kM>
+__global__ void __launch_bounds__(kPfbThreads, 1) pfb_kernel_wide(PfbArgs a) {
+  pfb_body<L, kStokes, kM>(a);
+}
+
 template <class L, bool kStokes, int kM>
 int launch_pfb_m(const PfbArgs& a, int64_t nblocks, size_t smem,
                  cudaStream_t stream) {
-  auto kernel = pfb_kernel<L, kStokes, kM>;
+  void (*kernel)(PfbArgs);
+  if constexpr (kM >= 8) {
+    kernel = pfb_kernel_wide<L, kStokes, kM>;
+  } else {
+    kernel = pfb_kernel<L, kStokes, kM>;
+  }
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -381,26 +404,38 @@ int launch_pfb_m(const PfbArgs& a, int64_t nblocks, size_t smem,
   return static_cast<int>(cudaGetLastError());
 }
 
-// the instantiation of nfft's points per lane, max(nfft / 32, 1)
+// the instantiation of nfft's points per lane, max(nfft / 32, 1); rows
+// take nfft 128-1024 only (the JAX package's rows rule)
 template <class L, bool kStokes>
 int launch_pfb(const PfbArgs& a, int64_t nblocks, size_t smem,
                cudaStream_t stream) {
+  constexpr bool wire = std::is_same<L, PfbWire>::value;
   switch (a.nfft >> 5) {
     case 0:
-    case 1: return launch_pfb_m<L, kStokes, 1>(a, nblocks, smem, stream);
-    case 2: return launch_pfb_m<L, kStokes, 2>(a, nblocks, smem, stream);
+    case 1:
+      if constexpr (wire) {
+        return launch_pfb_m<L, kStokes, 1>(a, nblocks, smem, stream);
+      }
+      break;
+    case 2:
+      if constexpr (wire) {
+        return launch_pfb_m<L, kStokes, 2>(a, nblocks, smem, stream);
+      }
+      break;
     case 4: return launch_pfb_m<L, kStokes, 4>(a, nblocks, smem, stream);
     case 8: return launch_pfb_m<L, kStokes, 8>(a, nblocks, smem, stream);
     case 16: return launch_pfb_m<L, kStokes, 16>(a, nblocks, smem, stream);
     default: return launch_pfb_m<L, kStokes, 32>(a, nblocks, smem, stream);
   }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 extern "C" {
 
-// One block, wire (ndf, nchk * 3584) or rows (nchk * 14, ndf, 256) int16,
+// One block, wire (ndf, nchk * 3584) or rows (nchk * 14, ndf, 256; nfft
+// 128-1024) int16,
 // -> partial (nout * nsub, nchk * 7, ns, nfft) float64 sums, ns = 4 (Stokes)
 // or 1. coeffs (ntap, nfft) float32; hist (nchk * 14, (ntap - 1) * nfft, 2)
 // int16 or null (one-shot). ts: window end slots per tile, a multiple of

@@ -106,6 +106,8 @@ def _launch(block: torch.Tensor, layout: str, nfft: int, ntap: int,
     _, ndf, nchk = PF.block_geometry(block, layout)
     _, wpg = PF.spectra_geometry(ndf * NSAMP_DF, nfft, ntap, nout)
     _check_kernel_shape(nfft, ntap)
+    if layout == "rows":
+        PF.check_rows_nfft(nfft)
     lib = lib or load_library()
     x = (block.reshape(ndf, -1) if layout == "wire"
          else block.reshape(-1, ndf, 2 * NSAMP_DF))

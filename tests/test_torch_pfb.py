@@ -368,6 +368,25 @@ def test_kernel_shape_limits_raise_on_cuda(nfft, ntap, monkeypatch,
     assert P.pfb_spectra(cpu, nfft, ntap).shape == (1, C.NCHAN_CHK * nfft)
 
 
+@pytest.mark.parametrize("nfft", [32, 64])
+def test_rows_kernel_takes_rows_nffts_only(nfft, monkeypatch):
+    """Series rows go through the kernel at nfft 128-1024 only (the JAX
+    package's rows rule): a smaller nfft on a CUDA tensor raises with its
+    message; the plain version still takes it on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        monkeypatch.setattr(_build, "_lib", None)
+        x = torch.empty((14, 32, 256), dtype=torch.int16, device="cuda")
+        with pytest.raises(ValueError, match="device-layout PFB supports"):
+            CF.pfb_spectra_cuda(x, nfft, 4, layout="rows")
+    rows = _rows(_block(67, 32, 1))
+    assert CF.pfb_spectra_cuda(rows, nfft, 4, layout="rows").shape == (
+        1, C.NCHAN_CHK * nfft)
+
+
 ROUTE_TORCH = {(2048, 4): "nfft 2048 is outside the CUDA kernel's 2..1024",
                (96, 4): "nfft 96 is not a power of two",
                (128, 12): "ntap 12 is outside the CUDA kernel's 1..8"}
