@@ -29,8 +29,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      nout 1 and 64, vs its plain version in float64: within 2e-5;
   5. the main paths through the port's CLI: recordings written with the
      port's ``paf_gen`` (1024 x 48, wire and ORDER SERIES) checked against
-     the plain version (and ``--pfb 2048``, the torch.fft route, on the
-     wire one), then recordings of full 8192 x 48 blocks checked
+     the plain version (and ``--pfb 2048`` and ``--pfb 128 --ntap 12``,
+     the torch.fft route, on the wire one), then recordings of full 8192 x
+     48 blocks checked
      against the plain versions: the power path (wire, wire x 64 spectra,
      ORDER SERIES), the Stokes path (the same three with ``--stokes``,
      NPOL 4 headers) and the PFB path (``--pfb 128`` and ``--pfb 1024
@@ -233,41 +234,44 @@ def run_cli(cli, argv: list[str]) -> dict:
     return json.loads(buf.getvalue().strip().splitlines()[-1])
 
 
-def pfb_torch_cli(cli, path: str, ndf: int, tmp: str,
-                  dev: torch.device) -> str:
-    """``--pfb 2048`` through the CLI on the ``paf_gen`` wire recording at
-    ``path`` (3 blocks of ``ndf`` x 48, seeds 5-7): the torch.fft route,
-    each record within 2e-5 of the plain streaming version in float64;
-    returns a summary."""
+def pfb_torch_cli(cli, path: str, ndf: int, tmp: str, dev: torch.device,
+                  nfft: int, ntap: int) -> str:
+    """``--pfb nfft --ntap ntap``, a shape the kernel does not take, through
+    the CLI on the ``paf_gen`` wire recording at ``path`` (3 blocks of
+    ``ndf`` x 48, seeds 5-7): the torch.fft route, each record within 2e-5
+    of the plain streaming version in float64; returns a summary."""
     from paf_baseband2power_tpu_torch.ops import cuda_power as CP
     from paf_baseband2power_tpu_torch.ops import frame as F
     from paf_baseband2power_tpu_torch.ops import pfb as PF
     from paf_baseband2power_tpu_torch.probes._common import peak_err
 
-    out = os.path.join(tmp, "pfb-2048.dada")
+    out = os.path.join(tmp, "pfb-torch.dada")
+    what = f"--pfb {nfft} --ntap {ntap}"
     CP.launches.clear()
     stats = run_cli(cli, ["-a", path, "-b", out, "--ndf", str(ndf),
-                          "--nchk", str(NCHK), "--pfb", "2048"])
+                          "--nchk", str(NCHK), "--pfb", str(nfft),
+                          "--ntap", str(ntap)])
     launched = dict(CP.launches)
-    hdr, recs = read_records(out, (NCHK * 7 * 2048,))
-    check(hdr["PFB_NFFT"] == "2048" and len(recs) == 3,
-          f"--pfb 2048: 3 records with PFB_NFFT 2048 ({len(recs)})")
+    hdr, recs = read_records(out, (NCHK * 7 * nfft,))
+    check(hdr["PFB_NFFT"] == str(nfft) and hdr["PFB_NTAP"] == str(ntap)
+          and len(recs) == 3, f"{what}: 3 records with its header "
+          f"({len(recs)})")
     check(set(launched) == {"pfb_torch"} and launched["pfb_torch"] >= 3,
-          f"--pfb 2048 ran the torch.fft route only: {launched}")
-    step = PF.make_streaming_pfb(2048, 4, dtype=torch.float64)
+          f"{what} ran the torch.fft route only: {launched}")
+    step = PF.make_streaming_pfb(nfft, ntap, dtype=torch.float64)
     carry, worst = None, 0.0
     for i, rec in enumerate(recs):
         blk = torch.from_numpy(F.synthetic_block(
             rng=5 + i, ndf=ndf, nchk=NCHK).reshape(ndf, -1)).to(dev)
         want, carry = step(blk, carry)
         e = peak_err(torch.from_numpy(np.array(rec)), want.cpu())[1]
-        check(e < BOUND_PFB, f"--pfb 2048 record {i}: {e:.3e} "
+        check(e < BOUND_PFB, f"{what} record {i}: {e:.3e} "
               "peak-normalized against the plain streaming version")
         worst = max(worst, e)
     os.remove(out)
-    return (f"3 records within {worst:.3e} (peak-normalized) of the plain "
-            f"streaming version in float64, {stats['realtime_x']:.3f}x real "
-            f"time, launches {launched}")
+    return (f"{what}: 3 records within {worst:.3e} (peak-normalized) of the "
+            f"plain streaming version in float64, {stats['realtime_x']:.3f}x "
+            f"real time, launches {launched}")
 
 
 def read_records(path: str, shape: tuple) -> tuple[dict, list[np.ndarray]]:
@@ -649,13 +653,14 @@ def main() -> int:
                                       nchk=NCHK).reshape(ndf, -1))).numpy()
                 check(np.array_equal(rec, want),
                       f"{layout} record {i} bit-equal to the plain version")
-            if layout == "wire":
-                pfb_2048 = pfb_torch_cli(cli, bb, ndf, tmp, dev)
+            if layout == "wire":   # fault 2's shapes: the torch.fft route
+                pfb_torch = [pfb_torch_cli(cli, bb, ndf, tmp, dev, nfft, ntap)
+                             for nfft, ntap in ((2048, 4), (128, 12))]
             os.remove(bb)
         log("[5a] CLI on paf_gen recordings 3 x 1024 x 48, wire and ORDER "
             "SERIES: every record bit-equal to the plain int64 version")
-        log(f"[5a] CLI --pfb 2048 on the wire recording (torch.fft route): "
-            f"{pfb_2048}")
+        for line in pfb_torch:
+            log(f"[5a] CLI on the wire recording, torch.fft route, {line}")
 
         # 5b. full 8192 x 48 blocks, recorded from device-drawn data; one
         # recording on disk at a time (8.5 GB). Writing one runs only the
