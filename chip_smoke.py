@@ -653,7 +653,7 @@ def main() -> int:
                                       nchk=NCHK).reshape(ndf, -1))).numpy()
                 check(np.array_equal(rec, want),
                       f"{layout} record {i} bit-equal to the plain version")
-            if layout == "wire":   # fault 2's shapes: the torch.fft route
+            if layout == "wire":   # shapes the kernel does not take
                 pfb_torch = [pfb_torch_cli(cli, bb, ndf, tmp, dev, nfft, ntap)
                              for nfft, ntap in ((2048, 4), (128, 12))]
             os.remove(bb)
