@@ -50,7 +50,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
      Karatsuba within 2e-5 of the float64 plain version; their ms per
      block beside the plain versions' and, for micro, ``torch.sum``'s; then
      the probes path: both probes' ``main`` at full size with a small
-     ``--iters``, their launch counts set to 0 just before and read after.
+     ``--iters``, their launch counts set to 0 just before and read after;
+  8. the process topology, each entry point run as a user runs it, in
+     processes of its own, ``--platform cuda``:
+     a. while each of phase 5b's full-size recordings is on disk, the
+        launcher in ring mode (``paf_diskdb`` -> ring -> compute -> ring ->
+        ``paf_dbdisk``, uuid ring keys, input ring ``NBLK 2``): power on the
+        wire file, ``--pfb 1024 --stokes --nspectra 8`` on it, power on the
+        ORDER SERIES file; every record byte-equal to the CLI's file-mode
+        output of phase 5b, the header equal, the rings gone, the compute
+        stage's log showing kernel launches;
+     b. on phase 5a's 1024 x 48 wire recording: ``--raw-spill`` (the spilled
+        payload byte-equal to the recording's) and ``--mode file`` (records
+        equal to the CLI's);
+     c. after phase 7, ``paf_soak`` (UDP capture over loopback -> ring ->
+        CUDA compute) at 1024 x 48 on 6 ports, ``--device-layout``, power
+        and ``--pfb 128 --nspectra 64``, 10 s each at ``SOAK_RATE``, then
+        at 1024 x 2 on one port, rate 1.0, 5 s: each report passes, with
+        kernel launches, within three runs.
+     ``/dev/shm``'s free bytes and ``MemAvailable`` are printed before each.
 The last two lines are the kernels' JSON record and the result line.
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -64,6 +82,7 @@ import io
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -122,6 +141,11 @@ PFB_CASES = [(32, 4, 1, False, False), (32, 8, 8, True, True),
 # shapes the CUDA kernel does not take, which go through torch.fft on the
 # card: nfft, ntap, nout, stokes
 PFB_TORCH_CASES = [(2048, 4, 1, False), (128, 12, 2, True)]
+# phase 8c's stream rate at full channel width, as a multiple of real time:
+# half the highest of 0.1, 0.25, 0.5 and 1.0 at which paf_soak passed at
+# 1024 x 48 on 6 ports over loopback on the H100's 8-core host (0.1, both
+# modes; PERF.md, PR 7)
+SOAK_RATE = 0.05
 
 
 def log(*a) -> None:
@@ -364,6 +388,8 @@ def main() -> int:
     log(f"[1] torch {torch.__version__} (CUDA {torch.version.cuda}), "
         f"python {sys.version.split()[0]}")
     log(f"[1] nvcc: {nvcc_ver.splitlines()[-1]}")
+    log(f"[1] host: {os.uname().machine}, {os.cpu_count()} cores, "
+        f"{host_memory()}")
 
     # --- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -656,6 +682,8 @@ def main() -> int:
             if layout == "wire":   # shapes the kernel does not take
                 pfb_torch = [pfb_torch_cli(cli, bb, ndf, tmp, dev, nfft, ntap)
                              for nfft, ntap in ((2048, 4), (128, 12))]
+                # 8b. the launcher's raw spill and file mode on this file
+                topology = spill_phase(bb, ndf, pw, tmp, smi)
             os.remove(bb)
         log("[5a] CLI on paf_gen recordings 3 x 1024 x 48, wire and ORDER "
             "SERIES: every record bit-equal to the plain int64 version")
@@ -676,11 +704,14 @@ def main() -> int:
                 "rows": (2, [("power", [], 0), ("stokes", ["--stokes"], 1),
                              ("pfb", ["--pfb", "128"], 2)])}
         main_stats = []
+        ring_modes = {"wire": [(), ("--pfb", "1024", "--stokes",
+                                    "--nspectra", "8")], "rows": [()]}
         pfb_cli_err = 0.0
         path_launches = {path: collections.Counter() for path in CLI_PATHS}
         for layout, (nblocks, cli_runs) in runs.items():
             path = os.path.join(tmp, f"full-{layout}.dada")
             refs = write_full_recording(path, layout, nblocks, gen, dev)
+            file_runs = {}
             for kind, extra, which in cli_runs:
                 pw = os.path.join(tmp, "full-power.dada")
                 CP.launches.clear()
@@ -688,6 +719,8 @@ def main() -> int:
                 path_launches[kind].update(CP.launches)
                 main_stats.append((layout, extra, st))
                 hdr, recs = read_records(pw, tuple(refs[0][which].shape))
+                if tuple(extra) in ring_modes[layout]:
+                    file_runs[tuple(extra)] = (hdr, recs)
                 check(hdr["NPOL"] == ("4" if "--stokes" in extra else "1"),
                       f"full {layout} {extra}: header NPOL {hdr['NPOL']}")
                 check(len(recs) == nblocks,
@@ -709,6 +742,10 @@ def main() -> int:
                           "peak-normalized against the plain streaming "
                           "version")
                     pfb_cli_err = max(pfb_cli_err, e[1])
+            # 8a. the same modes through the launcher's ring topology
+            log(f"[8a] {layout}: {host_memory()}")
+            topology += ring_phase(layout, path, file_runs, tmp, smi)
+            del file_runs
             os.remove(path)
         for kind in CLI_PATHS:
             for name in PATHS[kind]:
@@ -724,6 +761,8 @@ def main() -> int:
             f"{dict(path_launches[kind])}")
     log(f"[5b] PFB records across block boundaries within {pfb_cli_err:.3e} "
         "(peak-normalized) of the plain streaming version")
+    for line in topology:
+        log(line)
 
     # --- 6. timing at 8192 x 48 ----------------------------------------------
     gen.manual_seed(7)
@@ -821,6 +860,10 @@ def main() -> int:
 
     # --- 7. the spectrometer probes (K11-K13) ------------------------------
     kernels += probe_phase(dev, gen, smi)
+
+    # --- 8c. the soak: live capture -> ring -> CUDA compute ------------------
+    torch.cuda.empty_cache()
+    soak_phase(smi)
     check(sorted(k["name"] for k in kernels) == sorted(KERNELS),
           "one record per wrapper")
     loaded = sorted(m for m in sys.modules
@@ -835,6 +878,193 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def host_memory() -> str:
+    """Free bytes of /dev/shm (where the rings live) and MemAvailable."""
+    st = os.statvfs("/dev/shm")
+    with open("/proc/meminfo") as f:
+        avail = next(line.split(":")[1].strip() for line in f
+                     if line.startswith("MemAvailable"))
+    return (f"/dev/shm free {st.f_bavail * st.f_frsize} B, MemAvailable "
+            f"{avail}")
+
+
+def stage_env() -> dict:
+    """The environment of the port's entry points run as processes: the
+    checkout on the import path."""
+    return dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+                + os.environ.get("PYTHONPATH", ""))
+
+
+def run_launcher(path: str, ndf: int, extra: list[str], tmp: str,
+                 name: str, mode: str = "ring") -> dict:
+    """The port's launcher (``cli/launcher.py``) on the recording at
+    ``path``, ``--platform cuda``, from an INI with uuid ring keys
+    (``DiskdbConf NBLK 2``, ``Baseband2powerConf NBLK 4``): diskdb -> ring
+    -> compute -> ring -> dbdisk. Fails if it exits non-zero or leaves a
+    ring behind, and, in ring mode, if the compute stage's log shows no
+    kernel launch. Returns its output directory, wall time and the compute
+    stage's ``pipeline done`` line."""
+    import re
+    import uuid
+
+    out = os.path.join(tmp, f"launcher-{name}")
+    os.makedirs(out)
+    keys = [uuid.uuid4().hex[:8] for _ in range(2)]
+    conf = os.path.join(out, "pipeline.conf")
+    with open(conf, "w") as f:
+        f.write(f"[BasicConf]\nNCHK_NIC: {NCHK}\n[DiskdbConf]\nNDF: {ndf}\n"
+                f"NBLK: 2\nKEY: {keys[0]}\n[Baseband2powerConf]\n"
+                f"KEY: {keys[1]}\nNBLK: 4\n")
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "paf_baseband2power_tpu_torch.cli.launcher",
+         "-c", conf, "-a", path, "-b", out, "-o", "out.dada", "--mode", mode,
+         "--platform", "cuda"] + extra,
+        env=stage_env(), capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(r.returncode == 0, f"launcher {name} exit code {r.returncode}: "
+          f"{r.stderr[-3000:]}")
+    left = [k for k in keys if os.path.exists(f"/dev/shm/pafb2p-{k}")]
+    check(not left, f"launcher {name}: rings {left} left behind")
+    res = {"dir": out, "wall": wall, "done": ""}
+    if mode == "ring":
+        with open(os.path.join(out, "baseband2power.log")) as f:
+            done = [line.split("] ", 2)[-1].strip() for line in f
+                    if "pipeline done" in line]
+        m = re.search(r"(\d+) kernel launches", done[-1] if done else "")
+        check(m is not None and int(m.group(1)) > 0,
+              f"launcher {name}: the compute stage launched kernels "
+              f"({done})")
+        res.update(done=done[-1], launches=int(m.group(1)),
+                   stages=stage_times(out))
+    return res
+
+
+def stage_times(out: str) -> str:
+    """Seconds from the launch of the stages to each block ``paf_diskdb``
+    committed, to the compute stage's warm-up, its pipeline start and its
+    end, from the stages' logs in ``out``."""
+    import datetime
+
+    def stamps(name, what):
+        with open(os.path.join(out, name)) as f:
+            return [datetime.datetime.strptime(line[1:24],
+                                               "%Y-%m-%d %H:%M:%S,%f")
+                    for line in f if what in line]
+
+    t0 = stamps("pipeline.log", "launch diskdb")[-1]
+    times = {"diskdb blocks": stamps("paf_diskdb.log", "-> ring")}
+    for what in ("warmup", "pipeline start", "pipeline done"):
+        times[f"compute {what}"] = stamps("baseband2power.log", what)[-1:]
+    return "; ".join(
+        f"{what} {', '.join(f'{(t - t0).total_seconds():.3f}' for t in ts)}"
+        for what, ts in times.items()) + " s after the stages' launch"
+
+
+def dada_payload(path: str, nbytes: int) -> tuple[dict, list[bytes]]:
+    from paf_baseband2power_tpu_torch.io.dada import DadaFileReader
+
+    with DadaFileReader(path) as r:
+        return r.header, list(r.blocks(nbytes))
+
+
+def ring_phase(layout: str, path: str, file_runs: dict, tmp: str,
+               smi: str) -> list[str]:
+    """Phase 8a on one of phase 5b's full-size recordings, while it is on
+    disk: the launcher in ring mode for each mode phase 5b ran through the
+    CLI in file mode (``file_runs``: flags -> (header, records)); every
+    record byte-equal and the header equal. Returns its log lines."""
+    lines = []
+    for extra, (file_hdr, file_recs) in file_runs.items():
+        name = f"{layout}{'-'.join([''] + list(extra))}"
+        res = run_launcher(path, FULL_NDF, list(extra), tmp, name)
+        shape = file_recs[0].shape
+        hdr, recs = read_records(os.path.join(res["dir"], "out.dada"), shape)
+        check(hdr == file_hdr, f"ring {name}: header equal to file mode's")
+        check(len(recs) == len(file_recs)
+              and all(a.tobytes() == b.tobytes()
+                      for a, b in zip(recs, file_recs)),
+              f"ring {name}: {len(recs)} records byte-equal to file mode's "
+              f"{len(file_recs)}")
+        lines.append(f"[8a] launcher --mode ring 8192 x 48 {layout} "
+                     f"{' '.join(extra) or 'power'}: {len(recs)} records "
+                     f"byte-equal to file mode, header equal; {res['wall']:.3f}"
+                     f" s wall; compute stage: {res['done']}; "
+                     f"{res['stages']} on {smi}")
+        shutil.rmtree(res["dir"])
+    return lines
+
+
+def spill_phase(path: str, ndf: int, file_out: str, tmp: str,
+                smi: str) -> list[str]:
+    """Phase 8b on phase 5a's 3 x 1024 x 48 wire recording: the launcher
+    with ``--raw-spill`` (NREADER 2), the spilled payload byte-equal to the
+    recording's; then ``--mode file``, its records byte-equal to the CLI's
+    (``file_out``)."""
+    nbytes = ndf * NCHK * 7168
+    res = run_launcher(path, ndf, ["--raw-spill", "raw.dada"], tmp, "spill")
+    hdr, raw = dada_payload(os.path.join(res["dir"], "raw.dada"), nbytes)
+    want_hdr, want = dada_payload(path, nbytes)
+    check(hdr == want_hdr and len(raw) == len(want) == 3 and raw == want,
+          "raw spill: header and payload byte-equal to the recording")
+    lines = [f"[8b] launcher --raw-spill 1024 x 48: 3 blocks spilled "
+             f"byte-equal to the recording, {res['wall']:.3f} s wall; "
+             f"compute stage: {res['done']}"]
+    resf = run_launcher(path, ndf, [], tmp, "file", mode="file")
+    got = dada_payload(os.path.join(resf["dir"], "out.dada"), NCHK * 7 * 4)
+    check(got == dada_payload(file_out, NCHK * 7 * 4),
+          "launcher --mode file: records and header equal to the CLI's")
+    lines.append(f"[8b] launcher --mode file 1024 x 48: 3 records byte-equal "
+                 f"to the CLI's, {resf['wall']:.3f} s wall on {smi}")
+    for d in (res["dir"], resf["dir"]):
+        shutil.rmtree(d)
+    return lines
+
+
+def soak_phase(smi: str) -> list[dict]:
+    """Phase 8c: ``paf_soak --platform cuda`` (capture over loopback ->
+    ring -> CUDA compute) at full channel width, 48 chunks on 6 ports,
+    1024 frames per block (cut from 8192 for loopback's rate), 8 blocks of
+    ring (2.8 GB of /dev/shm), the native sender, at ``SOAK_RATE``: power
+    and ``--pfb 128 --nspectra 64`` from ``--device-layout`` rows; then at
+    rate 1.0 at ``tests/test_soak.py``'s real-time geometry (1024 x 2, one
+    port). Each must pass with kernel launches on cuda:0, within three
+    runs as the JAX package's soak tests allow (capture's fall-behind quit
+    is itself probabilistic on a shared host). Returns the reports."""
+    full = ["--nchk", str(NCHK), "--nports", "6", "--ndf", "1024",
+            "--nblk", "8", "--device-layout", "--seconds", "10",
+            "--rate", str(SOAK_RATE)]
+    reports = []
+    for name, args in (("power", full),
+                       ("pfb", full + ["--pfb", "128", "--nspectra", "64"]),
+                       ("1024 x 2", ["--ndf", "1024", "--nchk", "2",
+                                     "--nports", "1", "--nblk", "8",
+                                     "--seconds", "5", "--rate", "1.0"])):
+        for attempt in range(3):
+            log(f"[8c] soak {name}, run {attempt + 1}: {host_memory()}")
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m",
+                 "paf_baseband2power_tpu_torch.cli.paf_soak",
+                 "--platform", "cuda", "--port-base", str(29100 + 10 * attempt)]
+                + args, env=stage_env(), capture_output=True, text=True,
+                timeout=300)
+            wall = time.perf_counter() - t0
+            report = (json.loads(r.stdout.strip().splitlines()[-1])
+                      if r.stdout.strip() else {})
+            log(f"[8c] soak {name} ({' '.join(args)}): exit {r.returncode}, "
+                f"{wall:.3f} s wall, on {smi}: {json.dumps(report)}")
+            ok = (r.returncode == 0 and report.get("pass") is True
+                  and report.get("kernel_launches", 0) > 0
+                  and report.get("backend") == "cuda:0")
+            if ok:
+                break
+        check(ok, f"soak {name} passes with kernel launches on cuda:0 "
+              f"within 3 runs: {r.stderr[-3000:]}")
+        reports.append(report)
+    return reports
 
 
 def run_main(fn, argv: list[str]) -> dict:

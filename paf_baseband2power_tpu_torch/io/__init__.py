@@ -1,1 +1,2 @@
-"""Host I/O of the port: DADA files and the shared-memory ring buffer."""
+"""Host I/O of the port: DADA files, the shared-memory ring buffer, the UDP
+capture engine and the frame sender."""

@@ -1,18 +1,19 @@
 """Python binding for the native shared-memory ring buffer.
 
-ctypes wrapper over ``native/ringbuf.cpp``, which ``g++`` builds at first
-use into the git-ignored ``.build/`` (``ops/_build.py:build_host_library``,
-the library named after a hash of its sources). Blocks are exposed as
-zero-copy numpy views of the mapped shm, so the compute stage reads exactly
-the bytes a writer process produced (``capture.c:586-642``,
-``diskdb.cu:24-67``).
+ctypes wrapper over ``native/ringbuf.cpp``. ``g++`` builds it at first use,
+with the capture engine (``native/capture.cpp``, which calls the ring code
+itself) and the sender (``native/sender.cpp``), into one library in the
+git-ignored ``.build/`` (``ops/_build.py:build_host_library``, the library
+named after a hash of its sources), as the JAX package's
+``native/Makefile`` builds ``libpafb2p.so``: one process never holds two
+copies of the ring code. Blocks are exposed as zero-copy numpy views of the
+mapped shm, so the compute stage reads exactly the bytes a writer process
+produced (``capture.c:586-642``, ``diskdb.cu:24-67``).
 
-A copy of the JAX package's ``io/ringbuffer.py`` and of its
-``native/ringbuf.{cpp,h}`` (not its capture engine or sender). The shared
-memory layout and the segment names (``/dev/shm/pafb2p-<key>``) are the same
-byte for byte, so the port's compute stage reads rings that the JAX
-package's ``paf_diskdb``/``paf_capture`` write and writes rings that its
-``paf_dbdisk`` reads.
+A copy of the JAX package's ``io/ringbuffer.py`` and of its ``native/``
+sources. The shared memory layout and the segment names
+(``/dev/shm/pafb2p-<key>``) are the same byte for byte, so each package's
+stages read the rings the other's write.
 
 Layered API:
   * :class:`RingBuffer` — raw protocol (create/connect, open/close block,
@@ -36,6 +37,7 @@ from .dada import DadaHeader
 
 NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "native")
+NATIVE_SOURCES = ("ringbuf", "capture", "sender")
 _build_lock = threading.Lock()
 _lib = None
 
@@ -47,8 +49,9 @@ def load_library() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         lib = ctypes.CDLL(_build.build_host_library(
-            "libpafb2p_ring", [os.path.join(NATIVE_DIR, "ringbuf.cpp")],
-            [os.path.join(NATIVE_DIR, "ringbuf.h")]))
+            "libpafb2p",
+            [os.path.join(NATIVE_DIR, f"{n}.cpp") for n in NATIVE_SOURCES],
+            [os.path.join(NATIVE_DIR, f"{n}.h") for n in NATIVE_SOURCES]))
         u64, u32, i32 = ctypes.c_uint64, ctypes.c_uint32, ctypes.c_int
         p_u8 = ctypes.POINTER(ctypes.c_uint8)
         sigs = {

@@ -4,8 +4,9 @@
 together, and links the objects into one shared library with a plain
 ``extern "C"`` interface, loaded with ``ctypes``. It needs neither ``ninja``
 nor PyTorch's headers, so a build takes seconds. ``g++`` builds the
-shared-memory ring buffer (``native/ringbuf.cpp``, bound by
-``io/ringbuffer.py``) the same way with :func:`build_host_library`.
+host library (the shared-memory ring buffer, the UDP capture engine and the
+sender of ``native/``, bound by ``io/ringbuffer.py``, ``io/capture.py`` and
+``io/sender.py``) the same way with :func:`build_host_library`.
 
 Each library is named after a hash of its sources, headers and flags, so an
 edited file can never load a stale binary, and it is built in a private

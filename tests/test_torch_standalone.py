@@ -1,9 +1,14 @@
 """The port stands alone: it imports neither ``jax`` nor anything of the
 JAX package, and its copies of that package's numpy/ctypes modules
-(``constants``, ``io/dada``, ``io/ringbuffer`` with ``native/ringbuf``,
-``ops/frame``, ``runtime/log``, ``runtime/debug``, ``cli/paf_gen``) are held
-against their originals here: equal constants, byte-equal headers and files,
-equal arrays, and rings that the two packages read from each other."""
+(``constants``, ``config``, ``io/dada``, ``io/ringbuffer`` with
+``native/ringbuf``, ``io/capture`` with ``native/capture``, ``io/sender``
+with ``native/sender``, ``ops/frame``, ``ops/time_utils``, ``runtime/log``,
+``runtime/debug``, ``cli/paf_gen``, ``cli/paf_diskdb``, ``cli/paf_dbdisk``,
+``cli/paf_db``, ``cli/paf_monitor``, ``cli/paf_capture``) are held against
+their originals here: equal constants, byte-equal headers, files and native
+sources, equal arrays, the same options and structures, and rings that the
+two packages read from each other. ``tests/test_torch_topology.py`` and
+``tests/test_torch_capture.py`` hold the copies' results equal too."""
 
 import os
 import subprocess
@@ -84,6 +89,56 @@ finally:
     rb.destroy(kin)
     rb.destroy(kout)
 assert karatsuba.main(["--check", "--platform", "cpu"]) == 0
+# the topology's modules, in this process: config, launcher (file mode),
+# paf_db, paf_diskdb -> ring -> paf_dbdisk, paf_monitor, a short capture
+# fed by the native sender, the frame header and time bookkeeping
+import socket, threading
+from paf_baseband2power_tpu_torch import config
+from paf_baseband2power_tpu_torch.cli import (launcher, paf_db, paf_dbdisk,
+                                              paf_diskdb, paf_monitor)
+from paf_baseband2power_tpu_torch.io import capture, sender
+from paf_baseband2power_tpu_torch.ops import frame, time_utils
+assert config.load_config().diskdb_rbufsz == C.BLOCK_NBYTES
+assert launcher.main(["-a", bb, "-b", tmp, "-o", "l.dada", "--mode", "file",
+                      "--ndf", "16", "--nchk", "4", "--platform", "cpu"]) == 0
+key = uuid.uuid4().hex[:8]
+assert paf_db.main(["-k", key, "-b", str(16 * 4 * C.DT_SIZE), "-n", "4"]) == 0
+assert paf_diskdb.main(["-a", key, "-c", bb]) == 0
+assert paf_monitor.main([key, "--json"]) == 0
+assert paf_dbdisk.main(["-k", key, "-D", tmp, "-o", "spill.dada"]) == 0
+assert paf_db.main(["-k", key, "-d"]) == 0
+rb.create(key, 16 * 2 * C.DT_SIZE, 4)
+try:
+    s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    eng = capture.CaptureEngine(capture.CaptureConf(
+        ip="127.0.0.1", port_base=port, nports=1, ring_key=key, ndf_blk=16,
+        nchk=2, tbuf_ndf=4, timeout_sec=1.0, ndf_check=4))
+    done = threading.Event()
+    def feed():
+        while not done.is_set():
+            sender.stream_frames(port_base=port, nports=1, nchk=2,
+                                 nframes=4, pace_sec=0.0005)
+    t = threading.Thread(target=feed)
+    t.start()
+    try:
+        assert eng.probe() == 1
+    finally:
+        done.set()
+        t.join()
+    eng.start()
+    assert sender.stream_frames_native(port_base=port, nports=1, nchk=2,
+                                       idf0=eng.ref_idf, nframes=32,
+                                       rate=0.05) == 64
+    assert eng.wait() == 0 and eng.blocks_committed >= 2
+    eng.close()
+finally:
+    rb.destroy(key)
+h = frame.FrameHeader(valid=1, idf=7, sec=27, epoch=51, freq=1000.0)
+assert frame.FrameHeader.unpack(h.pack()) == h
+assert time_utils.start_time(51, 27, 7)[1] == 7 * C.TDF_PICOSECONDS
 spec = importlib.util.spec_from_file_location(
     "chip_smoke", os.path.join(sys.argv[2], "chip_smoke.py"))
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -95,8 +150,10 @@ print("LOADED", sorted(m for m in sys.modules
 
 def test_port_never_imports_jax(tmp_path):
     """Every module of the port, the CLI's CPU paths (power, Stokes, PFB;
-    file and ring source and sink), a probe and ``chip_smoke`` (imported,
-    not run) load neither jax nor any module of the JAX package."""
+    file and ring source and sink), a probe, the topology's modules (config,
+    launcher, paf_db, paf_diskdb, paf_dbdisk, paf_monitor, capture and
+    both senders) and ``chip_smoke`` (imported, not run) load neither jax
+    nor any module of the JAX package."""
     r = subprocess.run([sys.executable, "-c", _STANDALONE, str(tmp_path),
                         REPO], env=dict(os.environ, PYTHONPATH=REPO),
                        capture_output=True, text=True, timeout=300)
@@ -318,14 +375,20 @@ def test_ring_records_cross_packages(direction):
 
 
 def test_ring_library_is_the_ports_own_build():
-    """The port's ring library is built from its own ``native/`` copy into
-    ``.build/``, named after the sources' hash; its sources equal the JAX
-    package's."""
+    """The port's host library (ring, capture engine, sender: one library,
+    as the JAX package's ``native/Makefile`` builds) is built from its own
+    ``native/`` copy into ``.build/``, named after the sources' hash; its
+    sources equal the JAX package's byte for byte."""
     lib = PR.load_library()
-    assert os.path.basename(lib._name).startswith("libpafb2p_ring-")
+    assert os.path.basename(lib._name).startswith("libpafb2p-")
     assert os.path.dirname(lib._name) == _build.BUILD_DIR
+    for fn in ("pafb2p_rb_connect", "pafb2p_capture_create",
+               "pafb2p_sender_run"):
+        assert hasattr(lib, fn), fn
     jax_native = os.path.join(REPO, "paf_baseband2power_tpu", "native")
-    for name in ("ringbuf.cpp", "ringbuf.h"):
+    names = [f"{n}.{ext}" for n in PR.NATIVE_SOURCES for ext in ("cpp", "h")]
+    assert sorted(names) == sorted(os.listdir(PR.NATIVE_DIR))
+    for name in names:
         with open(os.path.join(PR.NATIVE_DIR, name), "rb") as a, \
                 open(os.path.join(jax_native, name), "rb") as b:
             assert a.read() == b.read(), name
@@ -354,3 +417,92 @@ def test_host_library_named_by_hash_and_reused(tmp_path):
     with pytest.raises(RuntimeError, match="nope"):
         _build.build_host_library("libx", [str(src)], [], out, cxx=bad)
     assert os.listdir(out) == [os.path.basename(lib)]
+
+
+# --- the topology's copies: the same options and structures -----------------
+
+
+class _Parsed(Exception):
+    pass
+
+
+def _options(main):
+    """Each option of a CLI's parser: (flags, default, type, choices, nargs,
+    required, action class)."""
+    import argparse
+
+    seen = []
+
+    def grab(self, *a, **k):
+        seen.append(self)
+        raise _Parsed
+
+    orig = argparse.ArgumentParser.parse_args
+    argparse.ArgumentParser.parse_args = grab
+    try:
+        with pytest.raises(_Parsed):
+            main([])
+    finally:
+        argparse.ArgumentParser.parse_args = orig
+    return {tuple(a.option_strings) or (a.dest,):
+            (a.default, a.type, a.choices, a.nargs, a.required,
+             type(a).__name__) for a in seen[0]._actions}
+
+
+COPIED_CLIS = ["paf_diskdb", "paf_dbdisk", "paf_db", "paf_monitor",
+               "paf_capture", "paf_gen"]
+
+
+@pytest.mark.parametrize("name", COPIED_CLIS)
+def test_copied_cli_options_equal(name):
+    import importlib
+
+    port = importlib.import_module(f"paf_baseband2power_tpu_torch.cli.{name}")
+    jax = importlib.import_module(f"paf_baseband2power_tpu.cli.{name}")
+    assert _options(port.main) == _options(jax.main)
+
+
+@pytest.mark.parametrize("name,added,removed", [
+    ("launcher", {("--platform",)}, set()),
+    ("paf_soak", {("--platform",)}, {("--fetch-every",),
+                                     ("--sharded-rows",)})])
+def test_ported_cli_options(name, added, removed):
+    """The launcher and the soak keep every option of the JAX package's
+    but those the port leaves out, and add ``--platform`` (default cuda)."""
+    import importlib
+
+    port = _options(importlib.import_module(
+        f"paf_baseband2power_tpu_torch.cli.{name}").main)
+    jax = _options(importlib.import_module(
+        f"paf_baseband2power_tpu.cli.{name}").main)
+    assert set(port) - set(jax) == added
+    assert set(jax) - set(port) == removed
+    assert {k: v for k, v in jax.items() if k not in removed} == \
+        {k: v for k, v in port.items() if k not in added}
+    assert port[("--platform",)][:3] == ("cuda", None, ["cuda", "cpu"])
+
+
+def test_capture_and_sender_structures_equal():
+    """The ctypes structures passed to the native library, the capture
+    configuration's defaults, and the senders' signatures."""
+    import dataclasses
+    import inspect
+
+    from paf_baseband2power_tpu.io import capture as JCAP
+    from paf_baseband2power_tpu.io import sender as JS
+    from paf_baseband2power_tpu_torch.io import capture as PCAP
+    from paf_baseband2power_tpu_torch.io import sender as PS
+
+    assert PCAP._ConfStruct._fields_ == JCAP._ConfStruct._fields_
+    assert PS._SenderConfStruct._fields_ == JS._SenderConfStruct._fields_
+    for cls in ("CaptureConf", "PortStats"):
+        p, j = getattr(PCAP, cls), getattr(JCAP, cls)
+        assert [(f.name, f.default) for f in dataclasses.fields(p)] == \
+            [(f.name, f.default) for f in dataclasses.fields(j)]
+    assert bytes(PCAP.CaptureConf().to_struct()) == \
+        bytes(JCAP.CaptureConf().to_struct())
+    for fn in ("stream_frames", "stream_frames_native"):
+        assert inspect.signature(getattr(PS, fn)) == \
+            inspect.signature(getattr(JS, fn))
+    assert [m for m in dir(PCAP.CaptureEngine) if not m.startswith("__")] \
+        == [m for m in dir(JCAP.CaptureEngine) if not m.startswith("__")]
