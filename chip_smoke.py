@@ -69,6 +69,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
         at 1024 x 2 on one port, rate 1.0, 5 s: each report passes, with
         kernel launches, within three runs.
      ``/dev/shm``'s free bytes and ``MemAvailable`` are printed before each.
+  9. the multi-device runtime, ``paf_multihost --platform cuda`` run as
+     processes on phase 5b's full-size recordings while each is on disk,
+     every rank reading its own slice of each block:
+     a. world size 1, ``--dist-backend nccl``: power, ``--stokes`` and
+        ``--pfb 1024 --stokes --nspectra 8`` (3 blocks, the carry across
+        them) on the wire file, ``--device-layout --pfb 128`` on the rows
+        file;
+     b. world size 2 on the one card (``gloo``, both ranks on cuda:0):
+        time-sharded power, time-sharded ``--pfb 1024 --stokes --nspectra
+        8`` (the halo and the carry cross ranks), the same with
+        ``--scatter-output``, ``--nbeam 2`` beam-sharded power (the wire
+        file for both beams), and ``--device-layout`` power (series split
+        over the ranks);
+     power and Stokes records bit-equal to phase 5b's single-device CLI
+     records of the same blocks, the PFB's within 2e-5 peak-normalized;
+     every run's ranks launch kernels, their counts summed per wrapper;
+     c. with phase 8c, ``paf_soak --sharded-rows --device-layout --pfb 128
+        --nspectra 64`` at ``SOAK_RATE``.
 The last two lines are the kernels' JSON record and the result line.
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -141,6 +159,24 @@ PFB_CASES = [(32, 4, 1, False, False), (32, 8, 8, True, True),
 # shapes the CUDA kernel does not take, which go through torch.fft on the
 # card: nfft, ntap, nout, stokes
 PFB_TORCH_CASES = [(2048, 4, 1, False), (128, 12, 2, True)]
+# phase 9's runs of paf_multihost on phase 5b's recordings, per layout:
+# (ranks, backend, flags, phase 5b's CLI flags of the same records, beams)
+PFB_MULTI = ("--pfb", "1024", "--stokes", "--nspectra", "8")
+MULTI_RUNS = {
+    "wire": [(1, "nccl", (), (), 1),
+             (1, "nccl", ("--stokes",), ("--stokes",), 1),
+             (1, "nccl", PFB_MULTI, PFB_MULTI, 1),
+             (2, "gloo", (), (), 1),
+             (2, "gloo", PFB_MULTI, PFB_MULTI, 1),
+             (2, "gloo", PFB_MULTI + ("--scatter-output",), PFB_MULTI, 1),
+             (2, "gloo", (), (), 2)],
+    "rows": [(1, "nccl", ("--device-layout", "--pfb", "128"),
+              ("--pfb", "128"), 1),
+             (2, "gloo", ("--device-layout",), (), 1)],
+}
+# the wrappers the multi-device path must launch (K1, K4, K5, K10)
+MULTI_KERNELS = ("baseband2power_cuda", "baseband2power_scrunch_rows_cuda",
+                 "baseband2stokes_cuda", "pfb_spectra_cuda")
 # phase 8c's stream rate at full channel width, as a multiple of real time:
 # half the highest of 0.1, 0.25, 0.5 and 1.0 at which paf_soak passed at
 # 1024 x 48 on 6 ports over loopback on the H100's 8-core host (0.1, both
@@ -708,10 +744,12 @@ def main() -> int:
                                     "--nspectra", "8")], "rows": [()]}
         pfb_cli_err = 0.0
         path_launches = {path: collections.Counter() for path in CLI_PATHS}
+        multi_launches = collections.Counter()
+        multi_lines = []
         for layout, (nblocks, cli_runs) in runs.items():
             path = os.path.join(tmp, f"full-{layout}.dada")
             refs = write_full_recording(path, layout, nblocks, gen, dev)
-            file_runs = {}
+            file_runs, multi_refs = {}, {}
             for kind, extra, which in cli_runs:
                 pw = os.path.join(tmp, "full-power.dada")
                 CP.launches.clear()
@@ -721,6 +759,9 @@ def main() -> int:
                 hdr, recs = read_records(pw, tuple(refs[0][which].shape))
                 if tuple(extra) in ring_modes[layout]:
                     file_runs[tuple(extra)] = (hdr, recs)
+                if any(tuple(extra) == run[3]
+                       for run in MULTI_RUNS[layout]):
+                    multi_refs[tuple(extra)] = recs
                 check(hdr["NPOL"] == ("4" if "--stokes" in extra else "1"),
                       f"full {layout} {extra}: header NPOL {hdr['NPOL']}")
                 check(len(recs) == nblocks,
@@ -746,6 +787,11 @@ def main() -> int:
             log(f"[8a] {layout}: {host_memory()}")
             topology += ring_phase(layout, path, file_runs, tmp, smi)
             del file_runs
+            # 9a-b. the multi-device runtime on the same recording
+            log(f"[9] {layout}: {host_memory()}")
+            multi_lines += multi_phase(layout, path, multi_refs, tmp, smi,
+                                       multi_launches)
+            del multi_refs
             os.remove(path)
         for kind in CLI_PATHS:
             for name in PATHS[kind]:
@@ -761,8 +807,12 @@ def main() -> int:
             f"{dict(path_launches[kind])}")
     log(f"[5b] PFB records across block boundaries within {pfb_cli_err:.3e} "
         "(peak-normalized) of the plain streaming version")
-    for line in topology:
+    for line in topology + multi_lines:
         log(line)
+    log(f"[9] launches over the multi-device path: {dict(multi_launches)}")
+    for name in MULTI_KERNELS:
+        check(multi_launches[name] > 0,
+              f"the multi-device path launched {name}")
 
     # --- 6. timing at 8192 x 48 ----------------------------------------------
     gen.manual_seed(7)
@@ -829,6 +879,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": CSRC + source,
             "replaces": replaces,
             "launches": path_launches[kind][name],
+            "launches_multidevice": multi_launches[name],
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
@@ -851,6 +902,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": CSRC + source,
             "replaces": replaces, "case": case,
             "launches": path_launches["pfb"][name],
+            "launches_multidevice": multi_launches[name],
             "max_abs_err": pfb_err[name][0],
             "max_err_peak_normalized": pfb_err[name][1],
             "ms": ms, "plain_ms": plain_ms,
@@ -859,7 +911,8 @@ def main() -> int:
     del big, big_rows
 
     # --- 7. the spectrometer probes (K11-K13) ------------------------------
-    kernels += probe_phase(dev, gen, smi)
+    kernels += [dict(k, launches_multidevice=0)
+                for k in probe_phase(dev, gen, smi)]
 
     # --- 8c. the soak: live capture -> ring -> CUDA compute ------------------
     torch.cuda.empty_cache()
@@ -1023,12 +1076,107 @@ def spill_phase(path: str, ndf: int, file_out: str, tmp: str,
     return lines
 
 
+def multi_phase(layout: str, path: str, refs: dict, tmp: str, smi: str,
+                launches: collections.Counter) -> list[str]:
+    """Phase 9a-b on one of phase 5b's full-size recordings, while it is on
+    disk: ``paf_multihost --platform cuda`` for each of ``MULTI_RUNS``,
+    its ranks as processes (``PAFB2P_*`` bootstrap on a free localhost
+    port), rank 0's records held against phase 5b's single-device CLI
+    records of the same blocks (``refs``: flags -> records). Adds each
+    rank's launches to ``launches``; returns the log lines."""
+    import socket
+
+    from paf_baseband2power_tpu_torch.probes._common import peak_err
+
+    lines = []
+    for world, backend, flags, ref_key, nbeam in MULTI_RUNS[layout]:
+        out = os.path.join(tmp, "multi.dada")
+        logs = os.path.join(tmp, "multi-logs")
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        argv = [sys.executable, "-m",
+                "paf_baseband2power_tpu_torch.cli.paf_multihost",
+                "-a", ",".join([path] * nbeam), "--nbeam", str(nbeam),
+                "--ndf", str(FULL_NDF), "--nchk", str(NCHK), *flags,
+                "--platform", "cuda", "--dist-backend", backend,
+                "--stats-json", "-c", logs]
+        env = stage_env()
+        t0 = time.perf_counter()
+        procs = []
+        for rank in range(world):
+            if world > 1:
+                env = dict(env, PAFB2P_COORDINATOR=f"127.0.0.1:{port}",
+                           PAFB2P_NUM_PROCS=str(world),
+                           PAFB2P_PROC_ID=str(rank))
+            procs.append(subprocess.Popen(
+                argv + (["-b", out] if rank == 0 else []), env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=300))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        name = (f"world {world} {backend} {layout} --nbeam {nbeam} "
+                f"{' '.join(flags) or 'power'}")
+        for p, (o, e) in zip(procs, outs):
+            check(p.returncode == 0, f"paf_multihost {name}: exit code "
+                  f"{p.returncode}: {e[-3000:]}")
+        stats = [json.loads(o.strip().splitlines()[-1]) for o, _ in outs]
+        ran = collections.Counter()
+        for st in stats:
+            ran.update(st["launches"])
+        check(sum(ran.values()) > 0 and all(st["nprocs"] == world
+                                            and st["backend"] == backend
+                                            for st in stats),
+              f"paf_multihost {name}: {world} ranks on {backend} launched "
+              f"kernels: {stats}")
+        launches.update(ran)
+        want = refs[ref_key]
+        _, got = read_records(out, want[0].shape)
+        check(len(got) == len(want) * nbeam,
+              f"paf_multihost {name}: {len(got)} records for "
+              f"{len(want)} blocks x {nbeam} beams")
+        err = 0.0
+        for k, rec in enumerate(got):
+            ref = want[k // nbeam]
+            if "--pfb" in flags:
+                err = max(err, peak_err(torch.from_numpy(np.array(rec)),
+                                        torch.from_numpy(np.array(ref)))[1])
+            else:
+                check(rec.tobytes() == ref.tobytes(),
+                      f"paf_multihost {name}: record {k} bit-equal to the "
+                      "single-device CLI's")
+        check(err < BOUND_PFB, f"paf_multihost {name}: {err:.3e} "
+              "peak-normalized against the single-device CLI")
+        lines.append(
+            f"[9{'a' if world == 1 else 'b'}] paf_multihost {name}: "
+            f"{len(got)} records "
+            + (f"within {err:.3e} (peak-normalized) of"
+               if "--pfb" in flags else "bit-equal to")
+            + f" the single-device CLI's; {wall:.3f} s wall, rank 0 set "
+            f"up in {stats[0]['setup_sec']:.3f} s, streamed in "
+            f"{stats[0]['elapsed']:.3f} s, {stats[0]['realtime_x']:.4f}x "
+            f"real time, mesh {stats[0]['mesh']}, launches {dict(ran)} "
+            f"on {smi}")
+        os.remove(out)
+        shutil.rmtree(logs, ignore_errors=True)
+    return lines
+
+
 def soak_phase(smi: str) -> list[dict]:
     """Phase 8c: ``paf_soak --platform cuda`` (capture over loopback ->
     ring -> CUDA compute) at full channel width, 48 chunks on 6 ports,
     1024 frames per block (cut from 8192 for loopback's rate), 8 blocks of
     ring (2.8 GB of /dev/shm), the native sender, at ``SOAK_RATE``: power
-    and ``--pfb 128 --nspectra 64`` from ``--device-layout`` rows; then at
+    and ``--pfb 128 --nspectra 64`` from ``--device-layout`` rows, the
+    latter also through the sharded rows step (``--sharded-rows``, phase
+    9c); then at
     rate 1.0 at ``tests/test_soak.py``'s real-time geometry (1024 x 2, one
     port). Each must pass with kernel launches on cuda:0, within three
     runs as the JAX package's soak tests allow (capture's fall-behind quit
@@ -1039,6 +1187,9 @@ def soak_phase(smi: str) -> list[dict]:
     reports = []
     for name, args in (("power", full),
                        ("pfb", full + ["--pfb", "128", "--nspectra", "64"]),
+                       ("sharded-rows pfb", full + [
+                           "--pfb", "128", "--nspectra", "64",
+                           "--sharded-rows"]),
                        ("1024 x 2", ["--ndf", "1024", "--nchk", "2",
                                      "--nports", "1", "--nblk", "8",
                                      "--seconds", "5", "--rate", "1.0"])):
@@ -1058,7 +1209,9 @@ def soak_phase(smi: str) -> list[dict]:
                 f"{wall:.3f} s wall, on {smi}: {json.dumps(report)}")
             ok = (r.returncode == 0 and report.get("pass") is True
                   and report.get("kernel_launches", 0) > 0
-                  and report.get("backend") == "cuda:0")
+                  and report.get("backend") == "cuda:0"
+                  and ("--sharded-rows" not in args
+                       or report["mode"].endswith("[sharded-rows]")))
             if ok:
                 break
         check(ok, f"soak {name} passes with kernel launches on cuda:0 "

@@ -74,8 +74,16 @@ def main(argv=None) -> int:
                     "NREADER=2 and run a second reader spilling raw "
                     "baseband to DIR/<UTC>.dada concurrently with compute "
                     "(the dada_dbdisk tap, paf-baseband2power.py:117-127)")
+    ap.add_argument("--sharded-rows", action="store_true",
+                    help="route compute through make_sharded_rows_step "
+                    "(series-TP with the streaming rows carry) on a chunk "
+                    "mesh of this process's rank — the live soak mode for "
+                    "the sharded fine-channel path; needs --device-layout "
+                    "and --pfb")
     ap.add_argument("-k", "--dir", default=None, help="log directory")
     args = ap.parse_args(argv)
+    if args.sharded_rows and not (args.device_layout and args.pfb):
+        ap.error("--sharded-rows needs --device-layout and --pfb")
     if args.tbuf and not 0 < args.tbuf <= args.ndf:
         ap.error(f"--tbuf must be in [1, --ndf={args.ndf}]: the native "
                  "engine rejects a temp buffer deeper than one ring block")
@@ -85,7 +93,8 @@ def main(argv=None) -> int:
     if args.platform == "cuda" and not torch.cuda.is_available():
         ap.error("--platform cuda: no CUDA device is available "
                  "(--platform cpu runs the plain PyTorch path)")
-    device = torch.device("cuda", 0) if args.platform == "cuda" else "cpu"
+    device = torch.device("cuda", 0) if args.platform == "cuda" else \
+        torch.device("cpu")
 
     from .. import constants as C
     from ..io import ringbuffer as rb
@@ -102,6 +111,8 @@ def main(argv=None) -> int:
     finally:
         if rb.exists(key):
             rb.destroy(key)
+        if torch.distributed.is_initialized():    # --sharded-rows' group
+            torch.distributed.destroy_process_group()
     log.info("soak: %s", report)
     print(json.dumps(report))
     return 0 if report["pass"] else 1
@@ -116,7 +127,23 @@ def _soak(args, key: str, log, device) -> dict:
     # starts: a first-block kernel build would stall the ring reader, fill
     # the ring, and trip capture's fall-behind quit
     sink = MemorySink()
-    pipe = PowerPipeline(device, log_dir=args.dir,
+    power_fn = None
+    if args.sharded_rows:
+        # the sharded streaming rows step as the live compute stage: one
+        # rank (this process) on a chunk mesh, series-TP with the
+        # zero-collective int16 rows carry (parallel/sharded.py:
+        # make_sharded_rows_step)
+        from ..parallel.distributed import init_distributed
+        from ..parallel.mesh import make_mesh
+        from ..parallel.sharded import make_sharded_rows_step
+
+        init_distributed("nccl" if device.type == "cuda" else "gloo")
+        mesh = make_mesh(n_time=1)
+        log.info("sharded-rows soak: %d-rank chunk mesh", mesh.size())
+        power_fn = make_sharded_rows_step(
+            mesh, nfft=args.pfb, ntap=args.ntap, nout=args.nspectra,
+            stokes=args.stokes, streaming=True)
+    pipe = PowerPipeline(device, power_fn=power_fn, log_dir=args.dir,
                          name="paf_soak_compute",
                          device_layout=args.device_layout,
                          pfb_nfft=args.pfb, pfb_ntap=args.ntap,
@@ -285,6 +312,7 @@ def _soak_with_engine(args, key, eng, pipe, sink, warmup_sec, frame_time,
             + ([f"waterfall[{args.nspectra}]"] if args.nspectra > 1 else [])
             or ["power"])
             + ("  [device-layout rows]" if args.device_layout else "")
+            + ("  [sharded-rows]" if args.sharded_rows else "")
             + ("  [spill tap NREADER=2]" if args.spill else ""),
         "seconds": args.seconds,
         "rate_x_realtime": args.rate,

@@ -42,16 +42,28 @@ _build_lock = threading.Lock()
 _lib = None
 
 
+def build_native(variant: str = "", build_dir: str | None = None) -> str:
+    """Build the host library, or its ``debug``, ``tsan`` or ``asan``
+    variant (``ops/_build.py:HOST_VARIANTS``), unless it is built; returns
+    its path."""
+    return _build.build_host_library(
+        f"libpafb2p.{variant}" if variant else "libpafb2p",
+        [os.path.join(NATIVE_DIR, f"{n}.cpp") for n in NATIVE_SOURCES],
+        [os.path.join(NATIVE_DIR, f"{n}.h") for n in NATIVE_SOURCES],
+        build_dir=build_dir, flags=_build.HOST_VARIANTS[variant])
+
+
 def load_library() -> ctypes.CDLL:
-    """Load the native library, building it first if needed."""
+    """Load the native library, building it first if needed.
+    ``PAFB2P_NATIVE_LIB`` names another build to load instead (a variant
+    from ``cli/rebuild.py``, as in the JAX package); a sanitizer's runtime
+    must then be in ``LD_PRELOAD``."""
     global _lib
     with _build_lock:
         if _lib is not None:
             return _lib
-        lib = ctypes.CDLL(_build.build_host_library(
-            "libpafb2p",
-            [os.path.join(NATIVE_DIR, f"{n}.cpp") for n in NATIVE_SOURCES],
-            [os.path.join(NATIVE_DIR, f"{n}.h") for n in NATIVE_SOURCES]))
+        lib = ctypes.CDLL(os.environ.get("PAFB2P_NATIVE_LIB")
+                          or build_native())
         u64, u32, i32 = ctypes.c_uint64, ctypes.c_uint32, ctypes.c_int
         p_u8 = ctypes.POINTER(ctypes.c_uint8)
         sigs = {

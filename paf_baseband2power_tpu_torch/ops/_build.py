@@ -33,6 +33,15 @@ BUILD_DIR = os.path.join(_PKG, ".build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 GXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-pthread", "-shared")
+# the host library's variants (the JAX package's ``native/Makefile``
+# targets): each is built under the hash of its own flags
+HOST_VARIANTS = {
+    "": GXX_FLAGS,
+    "debug": ("-O0", "-g", "-DPAFB2P_DEBUG", "-std=c++17", "-fPIC",
+              "-pthread", "-shared"),
+    "tsan": GXX_FLAGS + ("-g", "-fsanitize=thread"),
+    "asan": GXX_FLAGS + ("-g", "-fsanitize=address"),
+}
 PTXAS_VERBOSE = ("-Xptxas", "-v")     # a report only: the code is the same
 
 _lock = threading.Lock()
@@ -113,20 +122,20 @@ def build(csrc_dir: str | None = None, build_dir: str | None = None,
 
 def build_host_library(stem: str, srcs: list[str], hdrs: list[str],
                        build_dir: str | None = None,
-                       cxx: str = "g++") -> str:
-    """Compile host C++ ``srcs`` with ``cxx`` into
+                       cxx: str = "g++", flags: tuple = GXX_FLAGS) -> str:
+    """Compile host C++ ``srcs`` with ``cxx`` and ``flags`` into
     ``build_dir/<stem>-<hash>.so`` unless it is there; returns its path.
     Raises RuntimeError with the compiler's output when the build fails."""
     build_dir = build_dir or BUILD_DIR
     lib = os.path.join(
-        build_dir, f"{stem}-{source_hash(srcs + hdrs, GXX_FLAGS)}.so")
+        build_dir, f"{stem}-{source_hash(srcs + hdrs, flags)}.so")
     if os.path.exists(lib):
         return lib
     os.makedirs(build_dir, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix=".build-", dir=build_dir)
     try:
         tmp_lib = os.path.join(tmp, os.path.basename(lib))
-        _run_jobs([([cxx, *GXX_FLAGS, "-o", tmp_lib, *srcs, "-lrt"],
+        _run_jobs([([cxx, *flags, "-o", tmp_lib, *srcs, "-lrt"],
                     tmp_lib)])
         os.replace(tmp_lib, lib)
     finally:

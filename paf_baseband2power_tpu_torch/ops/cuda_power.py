@@ -47,25 +47,87 @@ def _on_cpu(x: torch.Tensor) -> bool:
     return False
 
 
-def _launch(family: str, layout: str, x: torch.Tensor, dims: tuple[int, int],
-            shape: tuple[int, ...], divisor: int | None) -> torch.Tensor:
+def _accumulate(family: str, layout: str, x: torch.Tensor,
+                dims: tuple[int, int], shape: tuple[int, ...]) -> torch.Tensor:
     """Run ``pafb2p_<family>_<layout>`` on ``x`` into an int64 scratch of
-    ``shape`` and its float32 epilogue ``pafb2p_<family>_finish``."""
+    ``shape``: the exact window sums."""
     lib = load_library()
     if x.data_ptr() % 16:
         raise ValueError("the kernels need 16-byte aligned blocks")
     acc = torch.zeros(shape, dtype=torch.int64, device=x.device)
-    out = torch.empty(shape, dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    nout, nchan = shape[0], shape[-1]
     with torch.cuda.device(x.device):
         launch = getattr(lib, f"pafb2p_{family}_{layout}")
-        _raise(lib, launch(x.data_ptr(), *dims, nout, acc.data_ptr(),
+        _raise(lib, launch(x.data_ptr(), *dims, shape[0], acc.data_ptr(),
                            stream))
+    return acc
+
+
+def _finish(family: str, acc: torch.Tensor,
+            divisor: int | None) -> torch.Tensor:
+    """The float32 epilogue ``pafb2p_<family>_finish`` of an int64
+    scratch."""
+    lib = load_library()
+    acc = acc.contiguous()
+    out = torch.empty(acc.shape, dtype=torch.float32, device=acc.device)
+    stream = torch.cuda.current_stream(acc.device).cuda_stream
+    with torch.cuda.device(acc.device):
         finish = getattr(lib, f"pafb2p_{family}_finish")
-        _raise(lib, finish(acc.data_ptr(), out.data_ptr(), nout, nchan,
-                           float(divisor or 0), stream))
+        _raise(lib, finish(acc.data_ptr(), out.data_ptr(), acc.shape[0],
+                           acc.shape[-1], float(divisor or 0), stream))
     return out
+
+
+def _launch(family: str, layout: str, x: torch.Tensor, dims: tuple[int, int],
+            shape: tuple[int, ...], divisor: int | None) -> torch.Tensor:
+    """The window sums of ``x`` and their float32 epilogue."""
+    return _finish(family, _accumulate(family, layout, x, dims, shape),
+                   divisor)
+
+
+def detect_sums(x: torch.Tensor, nout: int = 1, stokes: bool = False,
+                layout: str = "wire") -> torch.Tensor:
+    """Exact int64 window sums of a wire ``(ndf, nchk * 3584)`` or rows
+    ``(nseries, ndf, 256)`` block: ``(nout, nchan)`` for power, ``(nout,
+    4, nchan)`` of ``|x|^2, |y|^2, Re(x y*), Im(x y*)`` for Stokes. The
+    sums of several shards add exactly, and ``finish_sums`` turns the
+    total into the records a single device gives, bit for bit.
+
+    On the card this is the detection kernel without its epilogue, counted
+    under the wrapper that launches it for the same shape; on the CPU the
+    plain version's sums."""
+    family = "stokes" if stokes else "power"
+    if layout == "wire":
+        ndf, nchk = P.wire_geometry(x, nout)
+        if _on_cpu(x):
+            return (P.stokes_sums_2d if stokes else P.power_sums_2d)(x, nout)
+        dims, nchan = (ndf, nchk), nchk * NCHAN_CHK
+        name = (f"baseband2{family}_cuda" if nout == 1
+                else f"baseband2{family}_scrunch_cuda")
+    elif layout == "rows":
+        x = P.rows_geometry(x, nout)
+        if _on_cpu(x):
+            return (P.stokes_sums_rows if stokes else P.power_sums_rows)(
+                x, nout)
+        dims = _rows_dims(x)
+        nchan = dims[0] // 2
+        name = f"baseband2{family}_scrunch_rows_cuda"
+    else:
+        raise ValueError(f"unknown layout '{layout}'")
+    shape = (nout, 4, nchan) if stokes else (nout, nchan)
+    acc = _accumulate(family, layout, x, dims, shape)
+    launches[name] += 1
+    return acc
+
+
+def finish_sums(acc: torch.Tensor, stokes: bool = False,
+                divisor: int | None = None) -> torch.Tensor:
+    """``detect_sums``'s int64 sums (or a sum of them) -> float32 records,
+    divided in float64 by ``divisor`` for the mean; the kernels' epilogue
+    on the card, the plain one on the CPU."""
+    if acc.device.type == "cpu":
+        return P.finish_sums(acc, stokes, divisor)
+    return _finish("stokes" if stokes else "power", acc, divisor)
 
 
 def _raise(lib, code: int) -> None:

@@ -82,10 +82,17 @@ def _slab(row_elems: int) -> int:
     return max(1, _SLAB_ELEMS // row_elems)
 
 
-def baseband2power_scrunch_2d(block2d: torch.Tensor, nout: int,
-                              mean: bool = False) -> torch.Tensor:
-    """Wire block ``(ndf, nchk * 3584) int16`` -> ``(nout, nchk * 7)``
-    float32: each of ``nout`` equal frame windows integrated on its own."""
+def finish_sums(sums: torch.Tensor, stokes: bool = False,
+                divisor: int | None = None) -> torch.Tensor:
+    """Exact int64 window sums (``power_sums_*`` or ``stokes_sums_*``, or
+    the sum of several blocks' or shards' of them) -> the float32 records,
+    dividing in float64 for the mean."""
+    return (_finish_stokes if stokes else _finish)(sums, divisor)
+
+
+def power_sums_2d(block2d: torch.Tensor, nout: int) -> torch.Tensor:
+    """Wire block ``(ndf, nchk * 3584) int16`` -> exact int64 sums
+    ``(nout, nchk * 7)`` of each of ``nout`` equal frame windows."""
     ndf, nchk = wire_geometry(block2d, nout)
     nchan = nchk * NCHAN_CHK
     per_frame = torch.empty((ndf, nchan), dtype=torch.int64,
@@ -97,9 +104,16 @@ def baseband2power_scrunch_2d(block2d: torch.Tensor, nout: int,
             (x * x).reshape(-1, nchk, NSAMP_DF, NCHAN_CHK,
                             NPOL_SAMP * NDIM_POL)
             .sum(dim=(2, 4)).reshape(-1, nchan))
-    ndf_w = ndf // nout
-    power = per_frame.reshape(nout, ndf_w, nchan).sum(dim=1)
-    return _finish(power, mean_divisor(ndf_w) if mean else None)
+    return per_frame.reshape(nout, ndf // nout, nchan).sum(dim=1)
+
+
+def baseband2power_scrunch_2d(block2d: torch.Tensor, nout: int,
+                              mean: bool = False) -> torch.Tensor:
+    """Wire block ``(ndf, nchk * 3584) int16`` -> ``(nout, nchk * 7)``
+    float32: each of ``nout`` equal frame windows integrated on its own."""
+    sums = power_sums_2d(block2d, nout)
+    ndf_w = block2d.shape[0] // nout
+    return _finish(sums, mean_divisor(ndf_w) if mean else None)
 
 
 def baseband2power_2d(block2d: torch.Tensor,
@@ -131,12 +145,9 @@ def baseband2power_bytes(raw: torch.Tensor, ndf: int, nchk: int,
     return baseband2power_2d(bytes_to_block_2d(raw, ndf, nchk), mean=mean)
 
 
-def baseband2power_scrunch_rows(rows: torch.Tensor, nout: int = 1,
-                                mean: bool = False) -> torch.Tensor:
-    """Series-row block, 3-D ``(nseries, ndf, 256)`` or 2-D
-    ``(nseries, ndf * 256)`` int16 with ``nseries = nchk * 14`` ->
-    ``(nout, nchan)`` float32; the two pol series of a channel are
-    summed."""
+def power_sums_rows(rows: torch.Tensor, nout: int = 1) -> torch.Tensor:
+    """Series-row block -> exact int64 sums ``(nout, nseries / 2)``, the
+    two pol series of a channel summed."""
     x3 = rows_geometry(rows, nout)
     nseries, ndf, lanes = x3.shape
     per_frame = torch.empty((nseries, ndf), dtype=torch.int64,
@@ -145,10 +156,19 @@ def baseband2power_scrunch_rows(rows: torch.Tensor, nout: int = 1,
     for f0 in range(0, ndf, step):
         x = x3[:, f0:f0 + step].to(torch.int64)
         per_frame[:, f0:f0 + step] = (x * x).sum(dim=2)
-    ndf_w = ndf // nout
-    power = (per_frame.reshape(nseries // NPOL_SAMP, NPOL_SAMP, nout, ndf_w)
-             .sum(dim=(1, 3)).T)
-    return _finish(power, ndf_w * lanes // 2 * NPOL_SAMP if mean else None)
+    return (per_frame.reshape(nseries // NPOL_SAMP, NPOL_SAMP, nout,
+                              ndf // nout).sum(dim=(1, 3)).T)
+
+
+def baseband2power_scrunch_rows(rows: torch.Tensor, nout: int = 1,
+                                mean: bool = False) -> torch.Tensor:
+    """Series-row block, 3-D ``(nseries, ndf, 256)`` or 2-D
+    ``(nseries, ndf * 256)`` int16 with ``nseries = nchk * 14`` ->
+    ``(nout, nchan)`` float32; the two pol series of a channel are
+    summed."""
+    sums = power_sums_rows(rows, nout)
+    ndf_w = rows_geometry(rows, nout).shape[1] // nout
+    return _finish(sums, mean_divisor(ndf_w) if mean else None)
 
 
 def stokes_mean_divisor(ndf_w: int) -> int:
@@ -174,11 +194,10 @@ def _finish_stokes(terms: torch.Tensor, divisor: int | None) -> torch.Tensor:
                    divisor)
 
 
-def baseband2stokes_scrunch_2d(block2d: torch.Tensor, nout: int,
-                               mean: bool = False) -> torch.Tensor:
-    """Wire block ``(ndf, nchk * 3584) int16`` -> ``(nout, 4, nchk * 7)``
-    float32, rows I, Q, U, V: each of ``nout`` equal frame windows
-    integrated on its own."""
+def stokes_sums_2d(block2d: torch.Tensor, nout: int) -> torch.Tensor:
+    """Wire block ``(ndf, nchk * 3584) int16`` -> exact int64 sums
+    ``(nout, 4, nchk * 7)`` of ``|x|^2, |y|^2, Re(x y*), Im(x y*)`` over
+    each of ``nout`` equal frame windows."""
     ndf, nchk = wire_geometry(block2d, nout)
     nchan = nchk * NCHAN_CHK
     per_frame = torch.empty((ndf, 4, nchan), dtype=torch.int64,
@@ -191,8 +210,16 @@ def baseband2stokes_scrunch_2d(block2d: torch.Tensor, nout: int,
         terms = _stokes_terms(v[..., 0, 0], v[..., 0, 1], v[..., 1, 0],
                               v[..., 1, 1], dim=2)      # (4, f, nchk, 7)
         per_frame[f0:f0 + step] = terms.reshape(4, -1, nchan).transpose(0, 1)
-    ndf_w = ndf // nout
-    terms = per_frame.reshape(nout, ndf_w, 4, nchan).sum(dim=1)
+    return per_frame.reshape(nout, ndf // nout, 4, nchan).sum(dim=1)
+
+
+def baseband2stokes_scrunch_2d(block2d: torch.Tensor, nout: int,
+                               mean: bool = False) -> torch.Tensor:
+    """Wire block ``(ndf, nchk * 3584) int16`` -> ``(nout, 4, nchk * 7)``
+    float32, rows I, Q, U, V: each of ``nout`` equal frame windows
+    integrated on its own."""
+    terms = stokes_sums_2d(block2d, nout)
+    ndf_w = block2d.shape[0] // nout
     return _finish_stokes(terms, stokes_mean_divisor(ndf_w) if mean else None)
 
 
@@ -203,12 +230,10 @@ def baseband2stokes_2d(block2d: torch.Tensor,
     return baseband2stokes_scrunch_2d(block2d, 1, mean=mean)[0]
 
 
-def baseband2stokes_scrunch_rows(rows: torch.Tensor, nout: int = 1,
-                                 mean: bool = False) -> torch.Tensor:
-    """Series-row block, 3-D ``(nseries, ndf, 256)`` or 2-D
-    ``(nseries, ndf * 256)`` int16 -> ``(nout, 4, nseries / 2)`` float32,
-    rows I, Q, U, V. Series ``2k`` and ``2k + 1`` are channel ``k``'s x and
-    y, with re and im interleaved on lanes."""
+def stokes_sums_rows(rows: torch.Tensor, nout: int = 1) -> torch.Tensor:
+    """Series-row block -> exact int64 sums ``(nout, 4, nseries / 2)`` of
+    ``|x|^2, |y|^2, Re(x y*), Im(x y*)``. Series ``2k`` and ``2k + 1`` are
+    channel ``k``'s x and y, with re and im interleaved on lanes."""
     x3 = rows_geometry(rows, nout)
     nseries, ndf, lanes = x3.shape
     nchan = nseries // NPOL_SAMP
@@ -221,10 +246,18 @@ def baseband2stokes_scrunch_rows(rows: torch.Tensor, nout: int = 1,
         per_frame[:, :, f0:f0 + step] = _stokes_terms(
             v[:, 0, ..., 0], v[:, 0, ..., 1], v[:, 1, ..., 0],
             v[:, 1, ..., 1], dim=2)                     # (4, nchan, f)
-    ndf_w = ndf // nout
-    terms = per_frame.reshape(4, nchan, nout, ndf_w).sum(dim=3)
-    return _finish_stokes(terms.permute(2, 0, 1),
-                          stokes_mean_divisor(ndf_w) if mean else None)
+    terms = per_frame.reshape(4, nchan, nout, ndf // nout).sum(dim=3)
+    return terms.permute(2, 0, 1)
+
+
+def baseband2stokes_scrunch_rows(rows: torch.Tensor, nout: int = 1,
+                                 mean: bool = False) -> torch.Tensor:
+    """Series-row block, 3-D ``(nseries, ndf, 256)`` or 2-D
+    ``(nseries, ndf * 256)`` int16 -> ``(nout, 4, nseries / 2)`` float32,
+    rows I, Q, U, V."""
+    terms = stokes_sums_rows(rows, nout)
+    ndf_w = rows_geometry(rows, nout).shape[1] // nout
+    return _finish_stokes(terms, stokes_mean_divisor(ndf_w) if mean else None)
 
 
 def power_step(block: torch.Tensor) -> torch.Tensor:

@@ -25,7 +25,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import time
-from typing import Iterable, Iterator
+from typing import Callable, Iterable, Iterator
 
 import numpy as np
 import torch
@@ -204,9 +204,15 @@ class PowerPipeline:
     many fine channels first (``pfb_ntap`` taps, ``pfb_window``): through
     the CUDA kernel where ``cuda_pfb.kernel_takes`` the shape, else through
     ``torch.fft`` (``cuda_pfb.pfb_*_torch``), chosen once, here.
+
+    ``power_fn`` replaces the step (the JAX package's argument of that
+    name): ``power_fn(x) -> record``, or with ``pfb_nfft`` a streaming
+    ``power_fn(x, carry) -> (record, carry)``, e.g. a per-rank step of
+    ``parallel/sharded.py``.
     """
 
-    def __init__(self, device: torch.device | str, mean: bool = False,
+    def __init__(self, device: torch.device | str,
+                 power_fn: Callable | None = None, mean: bool = False,
                  depth: int = 2, name: str = "baseband2power",
                  log_dir: str | None = None, nout: int = 1,
                  device_layout: bool = False, stokes: bool = False,
@@ -221,7 +227,10 @@ class PowerPipeline:
         self._depth = max(1, depth)
         self._pfb = None
         self._pfb_route = ""
-        if pfb_nfft:
+        self._power_fn = power_fn if not pfb_nfft else None
+        if pfb_nfft and power_fn is not None:
+            self._pfb, self._pfb_route = power_fn, "power_fn"
+        elif pfb_nfft:
             if device_layout:
                 PF.check_rows_nfft(pfb_nfft)
                 PF.check_rows_ntap(pfb_ntap)
@@ -255,6 +264,8 @@ class PowerPipeline:
         if self._pfb is not None:
             out, self._carry = self._pfb(x, self._carry)
             return out
+        if self._power_fn is not None:
+            return self._power_fn(x)
         if self._device_layout:
             fn = (CP.baseband2stokes_scrunch_rows_cuda if stokes
                   else CP.baseband2power_scrunch_rows_cuda)

@@ -416,3 +416,46 @@ def test_pipeline_pfb_record_shapes_and_warmup(stokes, monkeypatch):
     shape = (1, 4, 4 * C.NCHAN_CHK * 64) if stokes else (4 * C.NCHAN_CHK
                                                           * 64,)
     assert [r.shape for r in sink.records] == [shape, shape]
+
+
+def test_pipeline_power_fn_replaces_the_step():
+    """``power_fn`` (the JAX package's argument): the pipeline calls it on
+    each staged block in place of its own step."""
+    from paf_baseband2power_tpu_torch.ops import power as P
+
+    seen = []
+
+    def power_fn(x):
+        seen.append(tuple(x.shape))
+        return P.baseband2power_2d(x, mean=True)
+
+    sink = RP.MemorySink()
+    stats = RP.PowerPipeline("cpu", power_fn=power_fn).run(
+        RP.SyntheticSource(2, ndf=NDF, nchk=4, seed=5), sink)
+    assert stats.nblocks == 2 and seen == [(NDF, 4 * 3584)] * 2
+    for i, rec in enumerate(sink.records):
+        np.testing.assert_array_equal(rec, baseband2power_golden(
+            F.synthetic_block(rng=5 + i, ndf=NDF, nchk=4), mean=True))
+
+
+def test_pipeline_streaming_power_fn_carries_its_state():
+    """With ``pfb_nfft`` a ``power_fn(x, carry) -> (record, carry)``
+    streams: each block gets the carry the previous one returned, the
+    first none."""
+    from paf_baseband2power_tpu_torch.ops import pfb as PF
+
+    carries = []
+
+    def step(x, carry):
+        carries.append(carry)
+        return PF.pfb_spectra(x, 128, 4, history=carry, return_history=True)
+
+    blocks = [F.synthetic_block(rng=90 + i, ndf=NDF, nchk=4)
+              for i in range(3)]
+    sink = RP.MemorySink()
+    RP.PowerPipeline("cpu", power_fn=step, pfb_nfft=128).run(
+        [b.reshape(NDF, -1) for b in blocks], sink)
+    assert carries[0] is None and all(c is not None for c in carries[1:])
+    want = pfb_spectra_golden(np.concatenate(blocks), 128, 4, nout=3)
+    for rec, w in zip(sink.records, want):
+        assert _pfb_err(rec.reshape(-1), w) < 2e-5

@@ -114,3 +114,23 @@ def test_soak_cuda_exits_nonzero_without_gpu(tmp_path):
     r, report = run_soak(["--seconds", "1"], tmp_path, timeout=60)
     assert r.returncode == 2 and report is None
     assert "no CUDA device" in r.stderr
+
+
+def test_soak_sharded_rows(tmp_path):
+    """``--sharded-rows``: the compute stage is the per-rank step of
+    ``make_sharded_rows_step`` (a one-rank chunk mesh, the streaming rows
+    carry) in place of the pipeline's own PFB step."""
+    report = soak_passes(["--seconds", "2", "--rate", "0.25", "--ndf", "256",
+                          "--nchk", "2", "--device-layout", "--pfb", "128",
+                          "--nspectra", "2", "--sharded-rows"], 1, 32500,
+                         tmp_path)
+    assert report["mode"] == ("pfb128+waterfall[2]  [device-layout rows]"
+                              "  [sharded-rows]")
+
+
+@pytest.mark.parametrize("flags", [["--pfb", "128"], ["--device-layout"]])
+def test_soak_sharded_rows_needs_device_layout_and_pfb(tmp_path, flags):
+    r, report = run_soak(["--sharded-rows", "--platform", "cpu", *flags],
+                         tmp_path, timeout=60)
+    assert r.returncode == 2 and report is None
+    assert "--sharded-rows needs --device-layout and --pfb" in r.stderr

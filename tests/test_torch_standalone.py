@@ -4,7 +4,8 @@ JAX package, and its copies of that package's numpy/ctypes modules
 ``native/ringbuf``, ``io/capture`` with ``native/capture``, ``io/sender``
 with ``native/sender``, ``ops/frame``, ``ops/time_utils``, ``runtime/log``,
 ``runtime/debug``, ``cli/paf_gen``, ``cli/paf_diskdb``, ``cli/paf_dbdisk``,
-``cli/paf_db``, ``cli/paf_monitor``, ``cli/paf_capture``) are held against
+``cli/paf_db``, ``cli/paf_monitor``, ``cli/paf_capture``,
+``cli/paf_relayout``) are held against
 their originals here: equal constants, byte-equal headers, files and native
 sources, equal arrays, the same options and structures, and rings that the
 two packages read from each other. ``tests/test_torch_topology.py`` and
@@ -139,6 +140,20 @@ finally:
 h = frame.FrameHeader(valid=1, idf=7, sec=27, epoch=51, freq=1000.0)
 assert frame.FrameHeader.unpack(h.pack()) == h
 assert time_utils.start_time(51, 27, 7)[1] == 7 * C.TDF_PICOSECONDS
+# the last tools and the multi-rank runtime at world size 1
+from paf_baseband2power_tpu_torch.cli import paf_multihost, paf_relayout
+from paf_baseband2power_tpu_torch.parallel import distributed, mesh, sharded
+from paf_baseband2power_tpu_torch.runtime import multibeam, pipeline
+assert paf_relayout.main(["-a", bb, "-b", os.path.join(tmp, "r.dada"),
+                          "--ndf", "16"]) == 0
+assert paf_multihost.main(["-a", "synthetic:2", "--ndf", "16", "--nchk", "4",
+                           "--pfb", "32", "--stokes", "--nspectra", "2",
+                           "--platform", "cpu"]) == 0
+distributed.init_distributed("gloo")
+sinks = [pipeline.MemorySink()]
+assert multibeam.run_multibeam(
+    [pipeline.SyntheticSource(2, ndf=16, nchk=4)], mesh.make_beam_mesh(1),
+    sinks, device="cpu").nblocks == 2 and len(sinks[0].records) == 2
 spec = importlib.util.spec_from_file_location(
     "chip_smoke", os.path.join(sys.argv[2], "chip_smoke.py"))
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -152,8 +167,9 @@ def test_port_never_imports_jax(tmp_path):
     """Every module of the port, the CLI's CPU paths (power, Stokes, PFB;
     file and ring source and sink), a probe, the topology's modules (config,
     launcher, paf_db, paf_diskdb, paf_dbdisk, paf_monitor, capture and
-    both senders) and ``chip_smoke`` (imported, not run) load neither jax
-    nor any module of the JAX package."""
+    both senders), paf_relayout, paf_multihost and run_multibeam at world
+    size 1 and ``chip_smoke`` (imported, not run) load neither jax nor any
+    module of the JAX package."""
     r = subprocess.run([sys.executable, "-c", _STANDALONE, str(tmp_path),
                         REPO], env=dict(os.environ, PYTHONPATH=REPO),
                        capture_output=True, text=True, timeout=300)
@@ -450,7 +466,7 @@ def _options(main):
 
 
 COPIED_CLIS = ["paf_diskdb", "paf_dbdisk", "paf_db", "paf_monitor",
-               "paf_capture", "paf_gen"]
+               "paf_capture", "paf_gen", "paf_relayout"]
 
 
 @pytest.mark.parametrize("name", COPIED_CLIS)
@@ -464,11 +480,14 @@ def test_copied_cli_options_equal(name):
 
 @pytest.mark.parametrize("name,added,removed", [
     ("launcher", {("--platform",)}, set()),
-    ("paf_soak", {("--platform",)}, {("--fetch-every",),
-                                     ("--sharded-rows",)})])
+    ("paf_soak", {("--platform",)}, {("--fetch-every",)}),
+    ("paf_multihost", {("--platform",), ("--dist-backend",)},
+     {("--fetch-every",)}),
+    ("rebuild", {("--host-only",), ("--build-dir",)}, set())])
 def test_ported_cli_options(name, added, removed):
-    """The launcher and the soak keep every option of the JAX package's
-    but those the port leaves out, and add ``--platform`` (default cuda)."""
+    """The launcher, the soak, paf_multihost and rebuild keep every option
+    of the JAX package's but those the port leaves out, and add their own:
+    ``--platform`` (default cuda) where they compute."""
     import importlib
 
     port = _options(importlib.import_module(
@@ -479,7 +498,8 @@ def test_ported_cli_options(name, added, removed):
     assert set(jax) - set(port) == removed
     assert {k: v for k, v in jax.items() if k not in removed} == \
         {k: v for k, v in port.items() if k not in added}
-    assert port[("--platform",)][:3] == ("cuda", None, ["cuda", "cpu"])
+    if ("--platform",) in added:
+        assert port[("--platform",)][:3] == ("cuda", None, ["cuda", "cpu"])
 
 
 def test_capture_and_sender_structures_equal():
