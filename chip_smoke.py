@@ -47,10 +47,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
   7. the spectrometer probes (K11-K13): micro, planes and Karatsuba
      kernels vs their plain versions at small sizes and at 8192 x 48
      (int16 in [-256, 256)): micro exact, planes (every stage_a) and
-     Karatsuba within 2e-5 of the float64 plain version; their ms per
-     block beside the plain versions' and, for micro, ``torch.sum``'s; then
-     the probes path: both probes' ``main`` at full size with a small
-     ``--iters``, their launch counts set to 0 just before and read after;
+     Karatsuba (R 1024 and 2048) within 2e-5 of the float64 plain version;
+     their ms per block beside the plain versions' and, for micro,
+     ``torch.sum``'s; for planes and Karatsuba, whose 128-point DFTs run
+     on the tensor cores (``csrc/tc_dft.cuh``), the floor of those products
+     at 3xBF16, two calls bit-equal, each kernel's ptxas line and the
+     ``HMMA``/``HGMMA`` instructions in its SASS (``cuobjdump -sass``;
+     none is a failure); then the probes path: both probes' ``main`` at
+     full size with a small ``--iters``, their launch counts set to 0 just
+     before and read after;
   8. the process topology, each entry point run as a user runs it, in
      processes of its own, ``--platform cuda``:
      a. while each of phase 5b's full-size recordings is on disk, the
@@ -120,8 +125,8 @@ PROBE_KAR = "benchmarks/probe_karatsuba.py"
 BOUND_PFB = 2e-5     # peak-normalized, benchmarks/parity_tpu.py:BOUND_PFB
 # one H100 SXM (its published peak rates): HBM bytes/s, fp32
 # FLOP/s outside the tensor cores (also the rate used for the integer work
-# of the detection kernels), TF32 tensor-core FLOP/s
-HBM_BPS, FP32_FLOPS, TF32_FLOPS = 3.35e12, 67e12, 495e12
+# of the detection kernels), bf16 tensor-core FLOP/s (dense)
+HBM_BPS, FP32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
 # wrapper -> (its kernel's source, the pl.pallas_call it replaces). K2's
 # call stands for K3's at :290, the same entry point's other tile class;
 # K8's (:609, the tile class of nout 1 at 8192 frames) for K7's packed
@@ -239,16 +244,13 @@ def planes_ops(nseries: int, nrow: int, nfft: int, ntap: int,
 
 
 def karatsuba_ops(nseries: int, ndf: int,
-                  ntap: int) -> tuple[float, float, float]:
-    """fp32 operations of the Karatsuba probe on its valid windows:
-    ``(least, kernel, products)``. Least: the function's, FIR (4 ntap),
-    a 128-point FFT (35) and |y|^2 (3) per sample. Kernel: what
-    ``csrc/probe_karatsuba.cu`` does, three 128 x 128 real products
-    (``products``) plus FIR, sums and |y|^2."""
+                  ntap: int) -> tuple[float, float]:
+    """Operations of the Karatsuba probe on its valid windows: ``(least,
+    products)``. Least: the function's fp32 work, FIR (4 ntap), a 128-point
+    FFT (35) and |y|^2 (3) per sample. Products: the three 128 x 128 real
+    products ``csrc/probe_karatsuba.cu`` runs on the tensor cores."""
     nwin = nseries * (ndf - ntap + 1)
-    products = nwin * 3 * 2 * 128 * 128
-    kernel = nwin * (2 * 256 * ntap + 128 + 256 + 3 * 128) + products
-    return nwin * 128 * (4 * ntap + 35 + 3), kernel, products
+    return nwin * 128 * (4 * ntap + 35 + 3), nwin * 3 * 2 * 128 * 128
 
 
 def ptxas_lines(report: str) -> list[str]:
@@ -1234,10 +1236,12 @@ def probe_phase(dev: torch.device, gen: torch.Generator,
     """Phase 7: the probe kernels against their plain versions, their
     times, and the probes path; returns their records of the kernels
     line."""
+    from paf_baseband2power_tpu_torch.ops import _build
     from paf_baseband2power_tpu_torch.ops import cuda_power as CP
     from paf_baseband2power_tpu_torch.probes import karatsuba as K
     from paf_baseband2power_tpu_torch.probes import wide_reshape as W
-    from paf_baseband2power_tpu_torch.probes._common import peak_err
+    from paf_baseband2power_tpu_torch.probes._common import (KERNEL_SPLIT,
+                                                             peak_err)
 
     f64 = torch.float64
     err = {name: [0.0, 0.0] for name in PATHS["probes"]}
@@ -1332,7 +1336,7 @@ def probe_phase(dev: torch.device, gen: torch.Generator,
 
     check(torch.equal(last_tile_sum()[:, None], W.micro_cuda(rows, 8, 128)),
           "torch.sum over the last tile equals micro")
-    kar_least, kar_kernel, kar_products = karatsuba_ops(nseries, FULL_NDF, 4)
+    kar_least, kar_products = karatsuba_ops(nseries, FULL_NDF, 4)
     timed = [   # (wrapper, case, kernel, plain, library call, bound)
         ("micro_cuda", "n1 8, R 128 (nfft 1024 tiles), narrow",
          lambda: W.micro_cuda(rows, 8, 128), lambda: W.micro(rows, 8, 128),
@@ -1384,15 +1388,40 @@ def probe_phase(dev: torch.device, gen: torch.Generator,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms,
         })
-    # the Karatsuba kernel's own work, beside the function's least
-    tf32x3_ms = (3 * kar_products / TF32_FLOPS
-                 + (kar_kernel - kar_products) / FP32_FLOPS) * 1e3
-    log(f"[7] karatsuba_planar_cuda: its own work {kar_kernel / 1e9:.1f} "
-        f"GFLOP (three products {kar_products / 1e9:.1f}) takes "
-        f"{kar_kernel / FP32_FLOPS * 1e3:.4f} ms on the fp32 CUDA cores, "
-        f"{tf32x3_ms:.4f} ms with the products at 3xTF32 on the tensor "
-        f"cores; the function's least, {kar_least / 1e9:.1f} GFLOP, "
-        f"{kar_least / FP32_FLOPS * 1e3:.4f} ms")
+    # the tensor-core kernels' own floor: their products at 3xBF16
+    planes_products = nseries * (nrow - 3) * 8 * 3 * 2 * 128 * 128
+    for r in records:
+        products = {"karatsuba_planar_cuda": kar_products,
+                    "planes_cuda": planes_products}.get(r["name"])
+        if products:
+            r["split"] = KERNEL_SPLIT
+            floor_ms = 3 * products / BF16_FLOPS * 1e3
+            log(f"[7] {r['name']}: three products of {products / 1e9:.1f} "
+                f"GFLOP at {KERNEL_SPLIT} take {floor_ms:.4f} ms "
+                f"on the tensor cores ({BF16_FLOPS / 1e12:.0f} TFLOP/s); the "
+                f"function's least (Karatsuba {kar_least / 1e9:.1f} GFLOP) "
+                f"{kar_least / FP32_FLOPS * 1e3:.4f} ms on the fp32 cores")
+    # two calls of each redesigned kernel on the same block are bit-equal
+    for name, call in (("karatsuba_planar_cuda R 1024",
+                        lambda: K.karatsuba_planar_cuda(rows, 1024)),
+                       ("planes_cuda nfft 1024 full",
+                        lambda: W.planes_cuda(xp, 1024, 4, 128, "full"))):
+        check(torch.equal(call(), call()), f"{name}: two calls bit-equal")
+    # what the redesigned kernels compiled to: ptxas and tensor-core SASS
+    lib_path = _build.build()
+    for line in ptxas_lines(_build.ptxas_report(lib_path)):
+        if line.startswith(("probe_karatsuba.cu", "probe_planes.cu")):
+            log(f"[7] ptxas {line}")
+    counts = _build.tensor_core_counts(lib_path)
+    for kernel, n in counts.items():
+        if "karatsuba_kernel" in kernel or "planes_kernel" in kernel:
+            log(f"[7] sass {kernel}: {n['HMMA']} HMMA, {n['HGMMA']} HGMMA")
+    for kernel, mangled in (("karatsuba_kernel", "karatsuba_kernel"),
+                            ("planes_kernel<8>", "planes_kernelILi8E")):
+        found = [n for k, n in counts.items() if mangled in k]
+        check(bool(found) and all(n["HMMA"] + n["HGMMA"] > 0 for n in found),
+              f"{kernel} is in the SASS and runs its products on the "
+              f"tensor cores: {found}")
     del rows, xp
     torch.cuda.empty_cache()
 

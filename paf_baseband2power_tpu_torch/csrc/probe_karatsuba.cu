@@ -1,6 +1,6 @@
 // Probe of a 3-real-product (Karatsuba) 128-point DFT on Hopper: planar int16
 // rows -> polyphase FIR -> T = (A+B) C, RE = T - B (C+D), IM = T - A (C-D)
-// -> |y|^2 summed over windows.
+// -> |y|^2 summed over windows, the three products on the tensor cores.
 //
 // Replaces the Pallas TPU kernel of benchmarks/probe_karatsuba.py:run_planar
 // (K13, a closure in its main()). A row holds one 128-sample window, planar:
@@ -10,128 +10,171 @@
 // (A + iB)(C + iD) takes three real (windows x 128) x (128 x 128) products
 // instead of four. Output: (S, 128) float32, natural order, not fftshifted.
 //
-// Work: one block per (series, tile of R windows), walked in sub-tiles of
-// 32 windows. The block forms a sub-tile's FIR in fp32 into shared memory,
-// transposed (A[n][w], B[n][w]); each thread then owns 4 windows x 4 fine
-// channels of all three products, reading the windows as float4 broadcasts
-// from shared memory and the three matrices (192 KB, resident in L1/L2)
-// through the read-only cache, on the fp32 CUDA cores. |y|^2 goes into
-// float64 per-thread sums; each block writes its tile's sums to its own slot
-// of a (S, ntiles, 128) float64 partials array, which
-// pafb2p_probe_tile_sum adds in order.
+// Work: one resident block per SM walks (series, tile of R windows) tiles,
+// each in sub-tiles of 64 windows, the rows of tc_dft.cuh's tile. Per
+// sub-tile the block forms the FIR in fp32 and writes it split, as the
+// tile's words (a thread slides over 16 windows of columns 2c, 2c + 1 of A
+// and B, reading and converting each row of the ring once; 8 taps, the
+// prototype's ntap at the end and 0 before), then runs tcdft::dft_tile
+// (mma.sync, 3xBF16; the note there says why) while cp.async brings the
+// next sub-tile's int16 rows into a ring in shared memory. The ring holds
+// kCap = 72 rows: a sub-tile's 64 and the 7 before them, so the prefetch
+// writes only slots whose rows the FIR has used. The DFT tables are loaded
+// once per block, not per tile. |y|^2 goes from the accumulators into
+// float64 per-thread sums; each tile's sums go to its own slot of a (S,
+// ntiles, 128) float64 partials array, which pafb2p_probe_tile_sum adds in
+// order (no float atomics: two calls are bit-equal).
 //
-// Bound: operations. 3 x 128^2 MACs per window, 541 GFLOP per 8192 x 48
-// block: 8.1 ms on the fp32 CUDA cores (67 TFLOP/s), 3.3 ms at 3xTF32 on the
-// tensor cores, against 0.84 ms of HBM. This first version uses the CUDA
-// cores and reads the matrices from L1 at about one load per 4 FMAs;
-// wgmma/3xTF32 and register-blocked tiles are later work.
+// Shared memory: the DFT tables 48 KB + the tile 96 KB + the ring 36 KB =
+// 180 KB, one block of 8 warps per SM.
+//
+// Bound: bytes for the function (0.84 ms at 3.35 TB/s for the 2.8 GB
+// block); the design's own floor is its products: 3 x 128^2 MACs per
+// window, 541 GFLOP per 8192 x 48 block, three times that at 3xBF16, 1.64
+// ms at the 989 TFLOP/s of bf16 wgmma. mma.sync reaches a lower share of
+// that rate, and the FIR, the loads and |y|^2 run beside the products, not
+// under them (PERF.md has the split).
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "tc_dft.cuh"
+
 namespace {
 
-constexpr int kKarThreads = 256;
-constexpr int kTm = 32;              // windows per sub-tile
-constexpr int kLd = kTm + 4;         // row stride of the transposed tile
-constexpr int kL = 128;
+using tcdft::kL;
+using tcdft::kRows;
+using tcdft::kThreads;
+constexpr int kCap = kRows + 8;      // ring rows
 
 struct KarArgs {
   const int* x;           // (S, ndf, 128) int32 words: (lane 2p, 2p + 1)
   const float* cv;        // (ntap, 256)
-  const float* c1;        // C, (128, 128) [n][k]
-  const float* c2;        // C + D
-  const float* c3;        // C - D
   double* partial;        // (S, ntiles, 128)
-  int64_t ndf, ntiles;
+  int64_t S, ndf, ntiles;
   int ntap, R;
 };
 
-__global__ void __launch_bounds__(kKarThreads) karatsuba_kernel(KarArgs a) {
+__global__ void __launch_bounds__(kThreads, 1) karatsuba_kernel(KarArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* As = reinterpret_cast<float*>(smem);            // [128][kLd]
-  float* Bs = As + kL * kLd;                             // [128][kLd]
-  double* red = reinterpret_cast<double*>(Bs + kL * kLd);   // [8][128]
-  float* cv = reinterpret_cast<float*>(red + 8 * kL);    // [ntap][256]
+  float4* tab = reinterpret_cast<float4*>(smem);
+  uint32_t* dtile = reinterpret_cast<uint32_t*>(smem + tcdft::kTableBytes);
+  int* ring = reinterpret_cast<int*>(smem + tcdft::kTableBytes +
+                                     tcdft::kTileBytes);         // kCap x 128
 
-  const int tid = threadIdx.x, ty = tid / 32, tx = tid % 32;
-  const int64_t s = blockIdx.x / a.ntiles, t = blockIdx.x % a.ntiles;
-  const int64_t w0 = t * a.R, wend = w0 + a.R;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int warp_m = warp / 4, warp_n = warp % 4;
   const int ntap = a.ntap;
-  const int* xs = a.x + s * a.ndf * kL;
-  for (int i = tid; i < ntap * 2 * kL; i += kKarThreads) cv[i] = a.cv[i];
-
-  double acc[4] = {0.0, 0.0, 0.0, 0.0};
-  for (int64_t wb = w0; wb < wend; wb += kTm) {
-    __syncthreads();     // cv loaded; the previous sub-tile's reads done
-    // FIR of kTm windows, two lanes per thread and step
-    for (int i = tid; i < kTm * kL; i += kKarThreads) {
-      const int wl = i / kL, p = i % kL;
-      const int64_t w = wb + wl;
-      float z0 = 0.0f, z1 = 0.0f;
-      if (w >= ntap - 1 && w < wend) {
-        for (int k = 0; k < ntap; ++k) {
-          const int v = __ldg(xs + (w - (ntap - 1) + k) * kL + p);
-          z0 += cv[k * 2 * kL + 2 * p] *
-                static_cast<float>(static_cast<short>(v & 0xffff));
-          z1 += cv[k * 2 * kL + 2 * p + 1] * static_cast<float>(v >> 16);
-        }
-      }
-      float* dst = 2 * p < kL ? As + 2 * p * kLd : Bs + (2 * p - kL) * kLd;
-      dst[wl] = z0;
-      dst[kLd + wl] = z1;
-    }
-    __syncthreads();
-    float T[4][4], P[4][4], Q[4][4];
+  // the FIR: this thread's columns 2c, 2c + 1 of A (word c of a row) and
+  // of B (word c + 64), 16 windows from 16 q; tap i of 8 weighs row w - 7 +
+  // i (cv's taps at the end, 0 before)
+  const int c = tid % 64, q = tid / 64;
+  float2 ca[8], cb[8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) T[i][j] = P[i][j] = Q[i][j] = 0.0f;
-    }
-#pragma unroll 2
-    for (int n = 0; n < kL; ++n) {
-      const float4 av = *reinterpret_cast<const float4*>(As + n * kLd + 4 * ty);
-      const float4 bv = *reinterpret_cast<const float4*>(Bs + n * kLd + 4 * ty);
-      const float am[4] = {av.x, av.y, av.z, av.w};
-      const float bm[4] = {bv.x, bv.y, bv.z, bv.w};
-      float c1[4], c2[4], c3[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int k = tx + 32 * j;
-        c1[j] = __ldg(a.c1 + n * kL + k);
-        c2[j] = __ldg(a.c2 + n * kL + k);
-        c3[j] = __ldg(a.c3 + n * kL + k);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float ab = am[i] + bm[i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          T[i][j] += ab * c1[j];
-          P[i][j] += bm[i] * c2[j];
-          Q[i][j] += am[i] * c3[j];
-        }
-      }
-    }
-    // masked and out-of-tile windows are zero rows: they add 0
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float re = T[i][j] - P[i][j], im = T[i][j] - Q[i][j];
-        acc[j] += static_cast<double>(re * re + im * im);
-      }
+  for (int i = 0; i < 8; ++i) {
+    const int k = i - (8 - ntap);
+    ca[i] = cb[i] = make_float2(0.0f, 0.0f);
+    if (k >= 0) {
+      const float* cvk = a.cv + k * 2 * kL + 2 * c;
+      ca[i] = make_float2(cvk[0], cvk[1]);
+      cb[i] = make_float2(cvk[kL], cvk[kL + 1]);
     }
   }
+  tcdft::load_tables(tab);
+
+  for (int64_t tile = blockIdx.x; tile < a.S * a.ntiles; tile += gridDim.x) {
+    const int64_t s = tile / a.ntiles, t = tile % a.ntiles;
+    const int64_t w0 = t * a.R, wend = w0 + a.R;
+    const int* xs = a.x + s * a.ndf * kL;
+    // rows [lo, hi) of the series that exist and lie before wend -> the
+    // ring; row w >= w0 - 8 sits in slot (w - w0 + 8) % kCap
+    auto fetch = [&](int64_t lo, int64_t hi) {
+      lo = lo < 0 ? 0 : lo;
+      hi = hi < wend ? hi : wend;
+      for (int64_t i = tid; i < (hi - lo) * 32; i += kThreads) {
+        const int64_t w = lo + i / 32;
+        const int slot = static_cast<int>((w - w0 + 8) % kCap);
+        tcdft::cp_async16(ring + slot * kL + (i % 32) * 4,
+                          xs + w * kL + (i % 32) * 4);
+      }
+      tcdft::cp_async_commit();
+    };
+    fetch(w0 - (ntap - 1), w0 + kRows);
+
+    double acc[tcdft::kNT][2] = {};
+    tcdft::Acc y;
+    for (int64_t wb = w0; wb < wend; wb += kRows) {
+      tcdft::cp_async_wait_all();
+      __syncthreads();   // the rows are in; the tile is free
+      // FIR of windows wb + 16 q .. + 15 for columns 2c, 2c + 1, sliding
+      // over the rows: each row is read and converted once. Rows the ring
+      // does not hold (before the series, or stale) are finite and weigh 0.
+      {
+        int slot = static_cast<int>((wb - w0 + 16 * q + 1) % kCap);
+        float2 ra[8], rb[8];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) red[ty * kL + tx + 32 * j] = acc[j];
-  __syncthreads();
-  if (tid < kL) {
-    double sum = 0.0;
+        for (int i = 1; i < 8; ++i) {
+          ra[i] = tcdft::unpack_int16x2(ring[slot * kL + c]);
+          rb[i] = tcdft::unpack_int16x2(ring[slot * kL + c + 64]);
+          slot = slot + 1 == kCap ? 0 : slot + 1;
+        }
 #pragma unroll
-    for (int g = 0; g < 8; ++g) sum += red[g * kL + tid];
-    a.partial[(s * a.ntiles + t) * kL + tid] = sum;
+        for (int j = 0; j < 16; ++j) {
+#pragma unroll
+          for (int i = 0; i < 7; ++i) {
+            ra[i] = ra[i + 1];
+            rb[i] = rb[i + 1];
+          }
+          ra[7] = tcdft::unpack_int16x2(ring[slot * kL + c]);
+          rb[7] = tcdft::unpack_int16x2(ring[slot * kL + c + 64]);
+          slot = slot + 1 == kCap ? 0 : slot + 1;
+          float2 za = make_float2(0.0f, 0.0f), zb = za;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            za.x += ca[i].x * ra[i].x;
+            za.y += ca[i].y * ra[i].y;
+            zb.x += cb[i].x * rb[i].x;
+            zb.y += cb[i].y * rb[i].y;
+          }
+          const int64_t w = wb + 16 * q + j;
+          if (w < ntap - 1 || w >= wend) za = zb = make_float2(0.0f, 0.0f);
+          tcdft::store_pair(dtile, 16 * q + j, c, za, zb);
+        }
+      }
+      __syncthreads();
+      fetch(wb + kRows, wb + 2 * kRows);
+      tcdft::dft_tile(dtile, tab, warp_m, warp_n, y);
+      // masked and out-of-tile windows are zero rows: they add 0
+#pragma unroll
+      for (int mt = 0; mt < tcdft::kMT; ++mt) {
+#pragma unroll
+        for (int nt = 0; nt < tcdft::kNT; ++nt) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const float yr = y.t[mt][nt][r] - y.p[mt][nt][r];
+            const float yi = y.t[mt][nt][r] - y.q[mt][nt][r];
+            acc[nt][r & 1] += static_cast<double>(yr * yr + yi * yi);
+          }
+        }
+      }
+    }
+    __syncthreads();     // every warp's products done: the tile is free
+    double* red = reinterpret_cast<double*>(dtile);   // [warp_m][g][128]
+#pragma unroll
+    for (int nt = 0; nt < tcdft::kNT; ++nt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        red[(warp_m * 8 + lane / 4) * kL +
+            tcdft::acc_col(warp_n, lane, nt, h)] = acc[nt][h];
+      }
+    }
+    __syncthreads();
+    if (tid < kL) {
+      double sum = 0.0;
+      for (int i = 0; i < 16; ++i) sum += red[i * kL + tid];
+      a.partial[(s * a.ntiles + t) * kL + tid] = sum;
+    }
   }
 }
 
@@ -140,8 +183,10 @@ __global__ void __launch_bounds__(kKarThreads) karatsuba_kernel(KarArgs a) {
 extern "C" {
 
 // rows (S, ndf, 256) int16 planar windows -> partial (S, ndf / R, 128)
-// float64 per-tile sums. cv (ntap, 256), c1/c2/c3 (128, 128) float32
-// [n][k]; 1 <= ntap <= 8, R divides ndf.
+// float64 per-tile sums. cv (ntap, 256); 1 <= ntap <= 8, R divides ndf.
+// c1, c2, c3 are unused: the kernel forms the DFT's matrices itself
+// (tcdft::load_tables). They stay in the interface, which an older build
+// of this kernel (one that reads them) shares.
 int pafb2p_probe_karatsuba(const void* rows, int64_t S, int64_t ndf, int ntap,
                            int R, const void* cv, const void* c1,
                            const void* c2, const void* c3, void* partial,
@@ -152,23 +197,22 @@ int pafb2p_probe_karatsuba(const void* rows, int64_t S, int64_t ndf, int ntap,
   KarArgs a;
   a.x = static_cast<const int*>(rows);
   a.cv = static_cast<const float*>(cv);
-  a.c1 = static_cast<const float*>(c1);
-  a.c2 = static_cast<const float*>(c2);
-  a.c3 = static_cast<const float*>(c3);
   a.partial = static_cast<double*>(partial);
+  a.S = S;
   a.ndf = ndf;
   a.ntiles = ndf / R;
   a.ntap = ntap;
   a.R = R;
-  const int64_t nblocks = S * a.ntiles;
-  if (nblocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const size_t smem = sizeof(float) * 2 * kL * kLd + sizeof(double) * 8 * kL +
-                      sizeof(float) * ntap * 2 * kL;
+  int nblocks = 0;
+  const cudaError_t g = tcdft::resident_grid(S * a.ntiles, &nblocks);
+  if (g != cudaSuccess) return static_cast<int>(g);
+  const size_t smem =
+      tcdft::kTableBytes + tcdft::kTileBytes + sizeof(int) * kCap * kL;
   const cudaError_t e = cudaFuncSetAttribute(
       karatsuba_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  karatsuba_kernel<<<static_cast<unsigned>(nblocks), kKarThreads, smem,
+  karatsuba_kernel<<<nblocks, kThreads, smem,
                      static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

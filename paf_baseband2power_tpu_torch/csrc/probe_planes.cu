@@ -17,29 +17,52 @@
 // real part of the stage-A twiddles) and kNone (z_0 for every k1). The last
 // two are wrong by design: they time stage A's share.
 //
-// Work: one block per (series, tile of R windows). Per step of W windows
-// (W = 2 at nfft 128, else 1) the block loads each plane's next rows into a
-// ring in shared memory that also holds the ntap - 1 rows before them, forms
-// the FIR of every plane (fp32), runs stage A in registers (one thread per
-// (window, n2), all k1 at once) with the twiddle W_N^(n2 k1), writes it
-// bit-reversed and runs the 128-point radix-2 DIT FFTs in shared memory, then
-// adds |y|^2 in float64 to per-thread accumulators. Each block writes its sums
-// to its own slot of a (nseries, ntiles, nfft) float64 partials array;
-// pafb2p_probe_tile_sum adds the tiles in order (no float atomics).
+// Work: one resident block per SM walks (series, tile of R windows) tiles,
+// each in steps of Wn = 64 / n1 windows: the n1 rows (k1) of each window's
+// 128-point DFTs fill the 64 rows of tc_dft.cuh's tile, row wi * n1 + k1.
+// Per step the block forms the FIR of every plane (fp32) from a ring of
+// int16 rows in shared memory, a thread sliding over the windows of one
+// sample n2 of n1 / 2 planes (each row read and converted once; 8 taps, the
+// prototype's ntap at the end and 0 before) into fp32 rows kept in the
+// tile's place; a thread per (column pair 2c, 2c + 1, quarter of the
+// windows) then runs stage A in registers (fft8 for stage_a=fft8, the
+// direct sum for full, noswap and none, one branch a window; a quarter turn
+// of W_n1 needs no product) and the twiddle W_N^(n2 k1), and once every
+// thread has read its rows, writes them split as the tile's words; then
+// tcdft::dft_tile (mma.sync, 3xBF16; the note there says why) runs while
+// cp.async brings each plane's next rows into the ring. The twiddle is
+// applied in registers, not folded into n1 matrices as the JAX probe does,
+// so every row shares one set of C, C + D, C - D; it comes from a table of
+// W_N^e, e < N, formed in float64 and rounded once, as the JAX probe's.
+// The ring holds Wn + 7 rows a plane: a step's and the 7 before them. In a
+// thread's accumulators k1 = g % n1 is fixed (n1 divides 8), so |y|^2 goes
+// into float64 per-thread sums for its 8 output lanes k1 * 128 + k2; each
+// tile's sums go to its own slot of a (nseries, ntiles, nfft) float64
+// partials array; pafb2p_probe_tile_sum adds the tiles in order (no float
+// atomics). No shared-memory FFT pass and no barrier per FFT stage remain:
+// four barriers a step.
 //
-// Bound: fp32 operations, not HBM: the block is read once (0.84 ms at 3.35
-// TB/s for 2.8 GB), but the direct stage A costs 8 n1 flops per sample (64
-// at nfft 1024) on top of FIR, FFT and detection. A first version, written
-// to be right; tensor-core stage B and a cheaper stage A are later work.
+// Shared memory: the DFT tables 48 KB + the tile 96 KB + the ring n1 x (Wn
+// + 7) x 512 B (60 KB at n1 8, 35.5 KB at n1 1) + the twiddle table (8 KB
+// at n1 8): 212 KB at most, one block of 8 warps per SM; the FIR's
+// coefficients, (ntap, nfft) fp32, come through the read-only cache.
+//
+// Bound: bytes for the function (0.84 ms for the 2.8 GB block); the design's
+// own floor is its products, 3 x 128^2 MACs per row, 541 GFLOP per 8192 x
+// 48 block at nfft 1024, three times that at 3xBF16: 1.64 ms at the 989
+// TFLOP/s of bf16 wgmma.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "tc_dft.cuh"
+
 namespace {
 
-constexpr int kPlanesThreads = 256;
-constexpr int kMaxPer = 1024 / kPlanesThreads;   // nfft / threads, at most
+using tcdft::kL;
+using tcdft::kRows;
+using tcdft::kThreads;
 
 enum StageA { kFull = 0, kFft8 = 1, kNoSwap = 2, kNone = 3 };
 
@@ -47,9 +70,24 @@ struct PlanesArgs {
   const int* x;          // (nseries, n1, nrow, 128) int32 (re, im) words
   const float* coeffs;   // (ntap, nfft)
   double* partial;       // (nseries, ntiles, nfft)
-  int64_t nrow, ntiles;
-  int ntap, R, stage, W, sp, cap;
+  int64_t nseries, nrow, ntiles;
+  int ntap, R, stage;
 };
+
+template <int N1>
+struct Geometry {
+  static constexpr int kWn = kRows / N1;          // windows per step
+  static constexpr int kCap = kWn + 7;            // ring rows per plane
+  static constexpr size_t kSmem = tcdft::kTableBytes + tcdft::kTileBytes +
+                                  sizeof(int) * N1 * kCap * kL +
+                                  sizeof(float2) * (kL * N1 + N1);
+};
+
+// where element (row, col) of the fp32 rows of the FIR and stage A is
+// stored: swizzled so that consecutive columns of a row meet distinct banks
+__device__ __forceinline__ int plane_index(int row, int col) {
+  return row * kL + (col ^ ((row & 3) << 3));
+}
 
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
@@ -60,8 +98,12 @@ __device__ __forceinline__ float2 cadd(float2 a, float2 b) {
 __device__ __forceinline__ float2 csub(float2 a, float2 b) {
   return make_float2(a.x - b.x, a.y - b.y);
 }
-__device__ __forceinline__ float2 times_i(float2 a) {   // i * a
-  return make_float2(-a.y, a.x);
+
+// W_n^j = exp(-2 pi i j / n), formed in float64
+__device__ __forceinline__ float2 twiddle(int j, int n) {
+  double sn, cs;
+  sincospi(-2.0 * j / n, &sn, &cs);
+  return make_float2(static_cast<float>(cs), static_cast<float>(sn));
 }
 
 // radix-2^3 DIF of 8 values in natural order (the probe's "fft8" recipe)
@@ -91,142 +133,237 @@ __device__ __forceinline__ void fft8(const float2* x, float2* out) {
   }
 }
 
+// stage A of one window, every k1: y[k1] = sum_m W_n1^(m k1) x[m] (kFull,
+// and kFft8 through fft8), its real twiddles only (kNoSwap), or x[0]
+// W_n1^j x for a j of a quarter turn (4 j % n1 == 0), exactly: 1, -i, -1, i
 template <int N1>
-__global__ void __launch_bounds__(kPlanesThreads) planes_kernel(PlanesArgs a) {
-  constexpr int nfft = 128 * N1;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float2* fir = reinterpret_cast<float2*>(smem);               // sp
-  float2* buf = fir + a.sp;                                     // sp
-  float2* tab = buf + a.sp;                                     // nfft
-  double* red = reinterpret_cast<double*>(tab + nfft);          // threads
-  float* coef = reinterpret_cast<float*>(red + kPlanesThreads); // ntap * nfft
-  int* ring = reinterpret_cast<int*>(coef + a.ntap * nfft);     // N1 x cap x 128
-
-  const int tid = threadIdx.x;
-  const int64_t s = blockIdx.x / a.ntiles, t = blockIdx.x % a.ntiles;
-  const int64_t w0 = t * a.R, wend = w0 + a.R;
-  const int mask = a.cap - 1, W = a.W, sp = a.sp, ntap = a.ntap;
-  const int* xs = a.x + s * N1 * a.nrow * 128;
-
-  for (int i = tid; i < nfft; i += kPlanesThreads) {
-    double sn, cs;
-    sincospi(-2.0 * i / nfft, &sn, &cs);
-    tab[i] = make_float2(static_cast<float>(cs), static_cast<float>(sn));
+__device__ __forceinline__ float2 quarter(int j, float2 x) {
+  switch (4 * j / N1) {
+    case 0: return x;
+    case 1: return make_float2(x.y, -x.x);
+    case 2: return make_float2(-x.x, -x.y);
+    default: return make_float2(-x.y, x.x);
   }
-  for (int i = tid; i < ntap * nfft; i += kPlanesThreads) coef[i] = a.coeffs[i];
-  // the ntap - 1 rows before the tile (zero before the series starts)
-  for (int i = tid; i < (ntap - 1) * N1 * 128; i += kPlanesThreads) {
-    const int k = i / (N1 * 128), m = i / 128 % N1, n2 = i % 128;
-    const int64_t w = w0 - (ntap - 1) + k;
-    ring[(m * a.cap + (w & mask)) * 128 + n2] =
-        w >= 0 ? __ldg(xs + (m * a.nrow + w) * 128 + n2) : 0;
-  }
+}
 
-  double acc[kMaxPer];
+template <int S, int N1>
+__device__ __forceinline__ void stage_a(const float2 (&x)[N1], float2 (&y)[N1],
+                                        const float2* tw_a) {
+  if constexpr (S == kFft8) {
+    fft8(x, y);
+  } else {
 #pragma unroll
-  for (int m = 0; m < kMaxPer; ++m) acc[m] = 0.0;
-  const int per = sp / kPlanesThreads;
-  const int64_t first = ntap - 1;     // one-shot: the first windows are masked
-  for (int64_t wa = w0; wa < wend; wa += W) {
-    for (int i = tid; i < sp; i += kPlanesThreads) {
-      const int wi = i / nfft, m = i / 128 % N1, n2 = i % 128;
-      const int64_t w = wa + wi;
-      ring[(m * a.cap + (w & mask)) * 128 + n2] =
-          w < wend ? __ldg(xs + (m * a.nrow + w) * 128 + n2) : 0;
-    }
-    __syncthreads();
-    // FIR of plane m: window w takes rows w - ntap + 1 .. w
-    for (int i = tid; i < sp; i += kPlanesThreads) {
-      const int wi = i / nfft, m = i / 128 % N1, n2 = i % 128;
-      const int64_t w = wa + wi;
-      float re = 0.0f, im = 0.0f;
-      if (w >= first && w < wend) {
-        for (int k = 0; k < ntap; ++k) {
-          const int v =
-              ring[(m * a.cap + ((w - (ntap - 1) + k) & mask)) * 128 + n2];
-          const float c = coef[k * nfft + m * 128 + n2];
-          re += c * static_cast<float>(static_cast<short>(v & 0xffff));
-          im += c * static_cast<float>(v >> 16);
-        }
-      }
-      fir[i] = make_float2(re, im);
-    }
-    __syncthreads();
-    // stage A for one (window, n2), every k1, then the twiddle W_N^(n2 k1)
-    for (int i = tid; i < W * 128; i += kPlanesThreads) {
-      const int wi = i / 128, n2 = i % 128;
-      float2 x[N1], y[N1];
+    for (int k1 = 0; k1 < N1; ++k1) {
+      float2 u = S == kNone ? x[0] : make_float2(0.0f, 0.0f);
+      if constexpr (S != kNone) {
 #pragma unroll
-      for (int m = 0; m < N1; ++m) x[m] = fir[(wi * N1 + m) * 128 + n2];
-      bool done = false;
-      if constexpr (N1 == 8) {
-        if (a.stage == kFft8) {
-          fft8(x, y);
-          done = true;
-        }
-      }
-      if (!done) {
-#pragma unroll
-        for (int k1 = 0; k1 < N1; ++k1) {
-          float2 v = make_float2(0.0f, 0.0f);
-          if (a.stage == kNone) {
-            v = x[0];
-          } else {
-#pragma unroll
-            for (int m = 0; m < N1; ++m) {
-              const float2 w = tab[(m * k1 % N1) * 128];   // W_n1^(m k1)
-              v = a.stage == kNoSwap
-                      ? make_float2(v.x + w.x * x[m].x, v.y + w.x * x[m].y)
-                      : cadd(v, cmul(w, x[m]));
+        for (int m = 0; m < N1; ++m) {
+          // W_n1^(m k1): a quarter turn is exact and needs no product
+          const int j = m * k1 % N1;
+          const bool exact = 4 * j % N1 == 0;
+          if constexpr (S == kNoSwap) {
+            const float wx = exact ? quarter<N1>(j, make_float2(1.0f, 0.0f)).x
+                                   : tw_a[j].x;
+            if (!exact || wx != 0.0f) {
+              u = make_float2(u.x + wx * x[m].x, u.y + wx * x[m].y);
             }
+          } else {
+            u = cadd(u, exact ? quarter<N1>(j, x[m]) : cmul(tw_a[j], x[m]));
           }
-          y[k1] = v;
         }
       }
-      const int rev = static_cast<int>(__brev(n2) >> 25);
-#pragma unroll
-      for (int k1 = 0; k1 < N1; ++k1) {
-        buf[(wi * N1 + k1) * 128 + rev] = cmul(tab[n2 * k1], y[k1]);
-      }
+      y[k1] = u;
     }
-    __syncthreads();
-    // 128-point radix-2 DIT FFTs, sp / 128 of them, W_128^j = tab[j * N1]
-    for (int h = 1; h < 128; h <<= 1) {
-      const int stride = 64 / h;
-      for (int b = tid; b < sp / 2; b += kPlanesThreads) {
-        const int f = b / 64, bb = b % 64, jj = bb % h;
-        const int i0 = f * 128 + (bb - jj) * 2 + jj;
-        const float2 wv = cmul(tab[jj * stride * N1], buf[i0 + h]);
-        const float2 u = buf[i0];
-        buf[i0] = cadd(u, wv);
-        buf[i0 + h] = csub(u, wv);
+  }
+}
+
+template <int N1>
+__global__ void __launch_bounds__(kThreads, 1) planes_kernel(PlanesArgs a) {
+  using G = Geometry<N1>;
+  constexpr int nfft = kL * N1;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float4* tab = reinterpret_cast<float4*>(smem);
+  uint32_t* dtile = reinterpret_cast<uint32_t*>(smem + tcdft::kTableBytes);
+  // the FIR's and stage A's rows in fp32, in the tile's place until the
+  // tile is written
+  float* re = reinterpret_cast<float*>(dtile);
+  float* im = re + kRows * kL;
+  int* ring = reinterpret_cast<int*>(smem + tcdft::kTableBytes +
+                                     tcdft::kTileBytes);  // N1 x kCap x 128
+  float2* tw = reinterpret_cast<float2*>(ring + N1 * G::kCap * kL);
+  float2* tw_a = tw + nfft;                // W_n1^j, j < n1
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int warp_m = warp / 4, warp_n = warp % 4;
+  const int ntap = a.ntap, stage = a.stage;
+  // the FIR: a thread's sample n2 and half q (tap i of 8 weighs row w - 7
+  // + i); stage A: its column pair c and quarter h of the step's windows
+  constexpr int kFirM = N1 == 1 ? 1 : N1 / 2;   // FIR: planes a thread
+  constexpr int kFirW = N1 == 1 ? G::kWn / 2 : G::kWn;   // and windows
+  constexpr int kWq = G::kWn / 4;
+  const int n2 = tid % kL, q = tid / kL;
+  const int c = tid % tcdft::kWords, h = tid / tcdft::kWords;
+  tcdft::load_tables(tab);
+  for (int i = tid; i < nfft + N1; i += kThreads) {
+    tw[i] = i < nfft ? twiddle(i, nfft) : twiddle(i - nfft, N1);
+  }
+
+  for (int64_t tile = blockIdx.x; tile < a.nseries * a.ntiles;
+       tile += gridDim.x) {
+    const int64_t s = tile / a.ntiles, t = tile % a.ntiles;
+    const int64_t w0 = t * a.R, wend = w0 + a.R;
+    const int* xs = a.x + s * N1 * a.nrow * kL;
+    // rows [lo, hi) of every plane that exist and lie before wend -> the
+    // ring; row w >= w0 - 8 sits in slot (w - w0 + 8) % kCap of its plane
+    auto fetch = [&](int64_t lo, int64_t hi) {
+      lo = lo < 0 ? 0 : lo;
+      hi = hi < wend ? hi : wend;
+      const int64_t n = hi - lo;
+      for (int64_t i = tid; i < N1 * n * 32; i += kThreads) {
+        const int m = static_cast<int>(i / (n * 32));
+        const int64_t w = lo + i / 32 % n;
+        const int slot = static_cast<int>((w - w0 + 8) % G::kCap);
+        tcdft::cp_async16(ring + (m * G::kCap + slot) * kL + (i % 32) * 4,
+                          xs + (m * a.nrow + w) * kL + (i % 32) * 4);
+      }
+      tcdft::cp_async_commit();
+    };
+    fetch(w0 - (ntap - 1), w0 + G::kWn);
+
+    double acc[tcdft::kNT][2] = {};
+    tcdft::Acc y;
+    for (int64_t wa = w0; wa < wend; wa += G::kWn) {
+      tcdft::cp_async_wait_all();
+      __syncthreads();   // the rows are in; the planes are free
+      // FIR of planes kFirM q .. + kFirM - 1 for windows wa + kFirW q' + j
+      // (q' = q at n1 1, else 0), sliding over each plane's rows: each row
+      // is read and converted once. Rows the ring does not hold (before the
+      // series, or stale) are finite and weigh 0. Window wi, plane m goes to
+      // row wi n1 + m of the tile, where stage A reads it and writes its
+      // own outputs in its place.
+#pragma unroll
+      for (int mi = 0; mi < kFirM; ++mi) {
+        const int m = kFirM * q % N1 + mi;
+        float c8[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int k = i - (8 - ntap);
+          c8[i] = k < 0 ? 0.0f : __ldg(a.coeffs + k * nfft + m * kL + n2);
+        }
+        const int wi0 = N1 == 1 ? kFirW * q : 0;
+        const int* rows = ring + m * G::kCap * kL + n2;
+        int slot = static_cast<int>((wa - w0 + wi0 + 1) % G::kCap);
+        float2 r[8];
+#pragma unroll
+        for (int i = 1; i < 8; ++i) {
+          r[i] = tcdft::unpack_int16x2(rows[slot * kL]);
+          slot = slot + 1 == G::kCap ? 0 : slot + 1;
+        }
+#pragma unroll
+        for (int j = 0; j < kFirW; ++j) {
+#pragma unroll
+          for (int i = 0; i < 7; ++i) r[i] = r[i + 1];
+          r[7] = tcdft::unpack_int16x2(rows[slot * kL]);
+          slot = slot + 1 == G::kCap ? 0 : slot + 1;
+          float2 z = make_float2(0.0f, 0.0f);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            z.x += c8[i] * r[i].x;
+            z.y += c8[i] * r[i].y;
+          }
+          const int64_t w = wa + wi0 + j;
+          if (w < ntap - 1 || w >= wend) z = make_float2(0.0f, 0.0f);
+          const int at = plane_index((wi0 + j) * N1 + m, n2);
+          re[at] = z.x;
+          im[at] = z.y;
+        }
       }
       __syncthreads();
-    }
-    // detect: position i is window i / nfft, output lane i % nfft
+      // stage A and the twiddle of samples 2c, 2c + 1 of windows kWq h ..
+      // + kWq - 1, held in registers until every thread has read its rows
+      float2 u0[kWq][N1], u1[kWq][N1];
 #pragma unroll
-    for (int m = 0; m < kMaxPer; ++m) {
-      if (m >= per) break;
-      const int i = tid + m * kPlanesThreads;
-      const int64_t w = wa + i / nfft;
-      if (w < first || w >= wend) continue;
-      const float2 y = buf[i];
-      acc[m] += static_cast<double>(y.x * y.x + y.y * y.y);
+      for (int j = 0; j < kWq; ++j) {
+        float2 x0[N1], x1[N1], v[N1];
+#pragma unroll
+        for (int m = 0; m < N1; ++m) {
+          const int at = plane_index((kWq * h + j) * N1 + m, 2 * c);
+          const float2 r = *reinterpret_cast<const float2*>(re + at);
+          const float2 i = *reinterpret_cast<const float2*>(im + at);
+          x0[m] = make_float2(r.x, i.x);
+          x1[m] = make_float2(r.y, i.y);
+        }
+#pragma unroll
+        for (int side = 0; side < 2; ++side) {
+          switch (stage) {
+            case kNoSwap: stage_a<kNoSwap>(side ? x1 : x0, v, tw_a); break;
+            case kNone: stage_a<kNone>(side ? x1 : x0, v, tw_a); break;
+            case kFft8:     // n1 8 only (the entry point refuses the rest)
+              if constexpr (N1 == 8) {
+                stage_a<kFft8>(side ? x1 : x0, v, tw_a);
+                break;
+              }
+              [[fallthrough]];
+            default: stage_a<kFull>(side ? x1 : x0, v, tw_a); break;
+          }
+#pragma unroll
+          for (int k1 = 0; k1 < N1; ++k1) {
+            const float2 t = k1 == 0 ? v[0]
+                                     : cmul(tw[(2 * c + side) * k1], v[k1]);
+            (side ? u1 : u0)[j][k1] = t;
+          }
+        }
+      }
+      __syncthreads();
+      // rows (kWq h + j) n1 + k1 of the tile, word c
+#pragma unroll
+      for (int j = 0; j < kWq; ++j) {
+#pragma unroll
+        for (int k1 = 0; k1 < N1; ++k1) {
+          tcdft::store_pair(dtile, (kWq * h + j) * N1 + k1, c,
+                            make_float2(u0[j][k1].x, u1[j][k1].x),
+                            make_float2(u0[j][k1].y, u1[j][k1].y));
+        }
+      }
+      __syncthreads();
+      fetch(wa + G::kWn, wa + 2 * G::kWn);
+      tcdft::dft_tile(dtile, tab, warp_m, warp_n, y);
+      // masked and out-of-tile windows are zero rows: they add 0
+#pragma unroll
+      for (int mt = 0; mt < tcdft::kMT; ++mt) {
+#pragma unroll
+        for (int nt = 0; nt < tcdft::kNT; ++nt) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const float yr = y.t[mt][nt][r] - y.p[mt][nt][r];
+            const float yi = y.t[mt][nt][r] - y.q[mt][nt][r];
+            acc[nt][r & 1] += static_cast<double>(yr * yr + yi * yi);
+          }
+        }
+      }
+    }
+    __syncthreads();     // every warp's products done: the tile is free
+    double* red = reinterpret_cast<double*>(dtile);   // [warp_m][g][128]
+#pragma unroll
+    for (int nt = 0; nt < tcdft::kNT; ++nt) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        red[(warp_m * 8 + lane / 4) * kL +
+            tcdft::acc_col(warp_n, lane, nt, c)] = acc[nt][c];
+      }
+    }
+    __syncthreads();
+    // lane k1 * 128 + k2: the rows g = k1, k1 + n1, ... of both warp rows
+    double* out = a.partial + (s * a.ntiles + t) * nfft;
+    for (int j = tid; j < nfft; j += kThreads) {
+      const int k1 = j / kL, k2 = j % kL;
+      double sum = 0.0;
+      for (int wm = 0; wm < 2; ++wm) {
+        for (int g = k1; g < 8; g += N1) sum += red[(wm * 8 + g) * kL + k2];
+      }
+      out[j] = sum;
     }
   }
-
-  double* out = a.partial + (s * a.ntiles + t) * nfft;
-  if (W == 1) {
-#pragma unroll
-    for (int m = 0; m < kMaxPer; ++m) {
-      if (m < per) out[tid + m * kPlanesThreads] = acc[m];
-    }
-    return;
-  }
-  // W = 2 (nfft 128): the two windows of a step share an output lane
-  red[tid] = acc[0];
-  __syncthreads();
-  if (tid < nfft) out[tid] = red[tid] + red[nfft + tid];
 }
 
 __global__ void tile_sum_kernel(const double* __restrict__ partial,
@@ -241,14 +378,17 @@ __global__ void tile_sum_kernel(const double* __restrict__ partial,
 }
 
 template <int N1>
-int launch_planes(const PlanesArgs& a, int64_t nblocks, size_t smem,
-                  cudaStream_t stream) {
+int launch_planes(const PlanesArgs& a, cudaStream_t stream) {
   auto kernel = planes_kernel<N1>;
+  const size_t smem = Geometry<N1>::kSmem;
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<static_cast<unsigned>(nblocks), kPlanesThreads, smem, stream>>>(a);
+  int nblocks = 0;
+  const cudaError_t g = tcdft::resident_grid(a.nseries * a.ntiles, &nblocks);
+  if (g != cudaSuccess) return static_cast<int>(g);
+  kernel<<<nblocks, kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -273,28 +413,18 @@ int pafb2p_probe_planes(const void* planes, int64_t nseries, int n1,
   a.x = static_cast<const int*>(planes);
   a.coeffs = static_cast<const float*>(coeffs);
   a.partial = static_cast<double*>(partial);
+  a.nseries = nseries;
   a.nrow = nrow;
   a.ntiles = nrow / R;
   a.ntap = ntap;
   a.R = R;
   a.stage = stage;
-  const int nfft = 128 * n1;
-  a.W = nfft < 256 ? 256 / nfft : 1;
-  a.sp = a.W * nfft;
-  a.cap = 1;
-  while (a.cap < ntap - 1 + a.W) a.cap <<= 1;
-  const int64_t nblocks = nseries * a.ntiles;
-  if (nblocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const size_t smem = sizeof(float2) * (2 * a.sp + nfft) +
-                      sizeof(double) * kPlanesThreads +
-                      sizeof(float) * ntap * nfft +
-                      sizeof(int) * n1 * a.cap * 128;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n1) {
-    case 1: return launch_planes<1>(a, nblocks, smem, s);
-    case 2: return launch_planes<2>(a, nblocks, smem, s);
-    case 4: return launch_planes<4>(a, nblocks, smem, s);
-    case 8: return launch_planes<8>(a, nblocks, smem, s);
+    case 1: return launch_planes<1>(a, s);
+    case 2: return launch_planes<2>(a, s);
+    case 4: return launch_planes<4>(a, s);
+    case 8: return launch_planes<8>(a, s);
     default: return static_cast<int>(bad);
   }
 }

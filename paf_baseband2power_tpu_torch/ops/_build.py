@@ -153,6 +153,29 @@ def ptxas_report(lib: str) -> str:
         return ""
 
 
+def tensor_core_counts(lib: str) -> dict[str, dict[str, int]]:
+    """``{kernel: {"HMMA": n, "HGMMA": n}}``: the tensor-core instructions
+    in each kernel's SASS (mangled names), from ``cuobjdump -sass`` of
+    ``lib``, the tool beside ``nvcc``."""
+    tool = os.path.join(os.path.dirname(find_nvcc() or ""), "cuobjdump")
+    if not os.access(tool, os.X_OK):
+        tool = shutil.which("cuobjdump") or tool
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    counts: dict[str, dict[str, int]] = {}
+    name = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            counts[name] = {"HMMA": 0, "HGMMA": 0}
+        elif name:
+            for op in ("HGMMA", "HMMA"):
+                if f" {op}." in line or f" {op} " in line:
+                    counts[name][op] += 1
+                    break
+    return counts
+
+
 def _run_jobs(jobs: list[tuple[list[str], str]]) -> list[str]:
     """Start every ``(command, output file)`` job at once and wait for all
     of them; returns each job's stderr and stdout. Raises with the

@@ -74,3 +74,62 @@ def peak_err(got, want) -> tuple[float, float]:
                  torch.from_numpy(np.array(t)) for t in (got, want))
     d = (got.double() - want.double()).abs().max().item()
     return d, d / want.double().abs().max().item()
+
+
+# --- the tensor-core DFT's arithmetic (csrc/tc_dft.cuh), emulated ----------
+
+KERNEL_SPLIT = "3xbf16"      # the split csrc/tc_dft.cuh runs
+
+
+def dft_matrices(dtype=np.float32) -> tuple[np.ndarray, ...]:
+    """``(C, C + D, C - D)``, ``(128, 128)`` ``[n][k]`` in ``dtype`` from
+    float64, with ``C + iD = exp(-2 pi i n k / 128)``: the three matrices of
+    the tensor-core DFT."""
+    w = np.exp(-2j * np.pi * np.outer(np.arange(128), np.arange(128)) / 128)
+    cm, dm = w.real, w.imag
+    return tuple(m.astype(dtype) for m in (cm, cm + dm, cm - dm))
+
+
+def round_tf32(x) -> np.ndarray:
+    """float32 -> TF32 as ``cvt.rna.tf32.f32`` does: 10 stored mantissa
+    bits, round to nearest, ties away from zero (kept as float32)."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def round_bf16(x) -> np.ndarray:
+    """float32 -> bfloat16, round to nearest even (kept as float32)."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    u = u + np.uint32(0x7FFF) + ((u >> np.uint32(16)) & np.uint32(1))
+    return (u & np.uint32(0xFFFF0000)).view(np.float32)
+
+
+def split_matmul(x, m, split: str = KERNEL_SPLIT) -> np.ndarray:
+    """``x @ m`` of float32 operands as the tensor cores form it under
+    ``split``, in float64: ``3xbf16`` (the kernels' and the JAX probes':
+    ``hi = bf16(v)``, ``lo = bf16(v - hi)`` of each operand, ``hi lo + lo
+    hi + hi hi``), ``3xtf32`` (the same in TF32, ``cvt.rna``) or ``tf32``
+    (``hi hi`` alone)."""
+    rnd = round_bf16 if split == "3xbf16" else round_tf32
+    parts = []
+    for v in (np.asarray(x, np.float32), np.asarray(m, np.float32)):
+        hi = rnd(v)
+        parts.append((hi.astype(np.float64),
+                      rnd(v - hi).astype(np.float64)))
+    (xh, xl), (mh, ml) = parts
+    if split == "tf32":
+        return xh @ mh
+    return xh @ ml + xl @ mh + xh @ mh
+
+
+def split_dft_power(re, im, c1, c2, c3,
+                    split: str = KERNEL_SPLIT) -> np.ndarray:
+    """``|y|^2`` in float64 of the 128-point DFT of float32 rows ``re + i
+    im`` (``(..., 128)``) through the three products of
+    ``csrc/tc_dft.cuh``, ``T = (re + im) c1``, ``RE = T - im c2``, ``IM = T
+    - re c3``, each formed as :func:`split_matmul`."""
+    re, im = np.asarray(re, np.float32), np.asarray(im, np.float32)
+    t = split_matmul(re + im, c1, split)
+    y_re = t - split_matmul(im, c2, split)
+    y_im = t - split_matmul(re, c3, split)
+    return y_re * y_re + y_im * y_im

@@ -53,10 +53,8 @@ def planar_ops(dtype=np.float32) -> tuple[np.ndarray, ...]:
     """``(cv (NTAP, 256), C, C + D, C - D (128, 128) [n][k])`` in
     ``dtype``, from float64 (the JAX probe's ``planar_ops``)."""
     c = pfb_coeffs(L, NTAP, "hamming", dtype=np.float64)
-    cv = np.concatenate([c, c], axis=1)
-    w = np.exp(-2j * np.pi * np.outer(np.arange(L), np.arange(L)) / L)
-    cm, dm = w.real, w.imag
-    return tuple(m.astype(dtype) for m in (cv, cm, cm + dm, cm - dm))
+    return (np.concatenate([c, c], axis=1).astype(dtype),
+            *_common.dft_matrices(dtype))
 
 
 def _geometry(rows: torch.Tensor, R: int) -> tuple[int, int]:
@@ -104,18 +102,23 @@ def karatsuba_planar(rows: torch.Tensor, R: int = 1024,
     return out.to(torch.float32)
 
 
-def karatsuba_planar_cuda(rows: torch.Tensor, R: int = 1024
-                          ) -> torch.Tensor:
+def karatsuba_planar_cuda(rows: torch.Tensor, R: int = 1024,
+                          lib=None) -> torch.Tensor:
     """K13 (``csrc/probe_karatsuba.cu``) for a CUDA tensor, the plain version
-    (float32) for a CPU one."""
+    (float32) for a CPU one. ``lib``: another build of the kernels
+    (``probes/probe_compare.py``), else the package's."""
     S, ndf = _geometry(rows, R)
     if _on_cpu(rows):
         return karatsuba_planar(rows, R)
-    lib = load_library()
+    other, lib = lib is not None, lib or load_library()
     if rows.data_ptr() % 16:
         raise ValueError("the kernels need 16-byte aligned blocks")
-    cv, c1, c2, c3 = (torch.from_numpy(m).to(rows.device)
-                      for m in planar_ops())
+    cv, *dft = planar_ops()
+    cv = torch.from_numpy(cv).to(rows.device)
+    # the package's kernel forms the DFT itself and ignores c1..c3; another
+    # build (an older one, probes/probe_compare.py) may read them
+    dft = [torch.from_numpy(m).to(rows.device) for m in dft] if other else []
+    mats = [m.data_ptr() for m in dft] or [None] * 3
     ntiles = ndf // R
     partial = torch.empty((S, ntiles, L), dtype=torch.float64,
                           device=rows.device)
@@ -123,11 +126,31 @@ def karatsuba_planar_cuda(rows: torch.Tensor, R: int = 1024
     stream = torch.cuda.current_stream(rows.device).cuda_stream
     with torch.cuda.device(rows.device):
         _raise(lib, lib.pafb2p_probe_karatsuba(
-            rows.data_ptr(), S, ndf, NTAP, R, cv.data_ptr(), c1.data_ptr(),
-            c2.data_ptr(), c3.data_ptr(), partial.data_ptr(), stream))
+            rows.data_ptr(), S, ndf, NTAP, R, cv.data_ptr(), *mats,
+            partial.data_ptr(), stream))
         _raise(lib, lib.pafb2p_probe_tile_sum(
             partial.data_ptr(), out.data_ptr(), S, ntiles, L, stream))
     launches["karatsuba_planar_cuda"] += 1
+    return out
+
+
+def karatsuba_planar_split(rows: torch.Tensor,
+                           split: str = _common.KERNEL_SPLIT) -> np.ndarray:
+    """The kernel's arithmetic emulated on the CPU, float64 ``(S, 128)``:
+    the FIR in float32, then the three products under ``split``
+    (``_common.split_dft_power``)."""
+    S, ndf = _geometry(rows, 1)
+    cv, c1, c2, c3 = planar_ops()
+    x = rows.cpu().numpy().astype(np.float32)
+    nwin = ndf - (NTAP - 1)
+    out = np.zeros((S, L))
+    for s0 in range(0, S, SERIES_GROUP):
+        xs = x[s0:s0 + SERIES_GROUP]
+        z = cv[0] * xs[:, :nwin]
+        for k in range(1, NTAP):
+            z = z + cv[k] * xs[:, k:k + nwin]
+        out[s0:s0 + SERIES_GROUP] = _common.split_dft_power(
+            z[..., :L], z[..., L:], c1, c2, c3, split).sum(axis=1)
     return out
 
 

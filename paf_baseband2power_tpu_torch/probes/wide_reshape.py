@@ -170,15 +170,13 @@ def _stage_a_matrix(n1: int, stage_a: str) -> np.ndarray:
     return w
 
 
-def planes(xp: torch.Tensor, nfft: int, ntap: int = 4, R: int = 8,
-           stage_a: str = "full",
-           dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Plain version of K12: planes ``(nseries, n1, nrow, 256)`` int16 ->
-    float32 ``(nseries, nfft)``, hamming FIR of ``ntap`` taps. ``dtype``:
-    the arithmetic, float32 or float64 (the on-card reference). ``R`` only
-    has to divide ``nrow``, as for the kernel: the sums do not depend on
-    it."""
-    nseries, n1, nrow = _planes_geometry(xp, nfft, ntap, R, stage_a)
+def _twiddled(xp: torch.Tensor, nfft: int, ntap: int, stage_a: str,
+              dtype: torch.dtype):
+    """Yield ``(s0, y)`` for each group of series from ``s0``: the FIR of
+    every plane, stage A and the twiddle ``W_N^(n2 k1)`` in ``dtype``'s
+    complex type, ``y`` ``(group, n1, nwin, 128)``, ready for the 128-point
+    DFT over its last axis."""
+    nseries, n1, nrow, _ = xp.shape
     ctype = torch.complex128 if dtype == torch.float64 else torch.complex64
     dev = xp.device
     c = torch.from_numpy(PF.pfb_coeffs(nfft, ntap, "hamming", np.float64)
@@ -188,9 +186,6 @@ def planes(xp: torch.Tensor, nfft: int, ntap: int = 4, R: int = 8,
     tw = torch.from_numpy(np.exp(-2j * np.pi * k1n2 / nfft)
                           ).to(dev, ctype).reshape(n1, 1, L)
     nwin = nrow - (ntap - 1)
-    out = torch.zeros((nseries, n1, L), dtype=dtype, device=dev)
-    if nwin <= 0:
-        return out.reshape(nseries, nfft).to(torch.float32)
     for s0 in range(0, nseries, SERIES_GROUP):
         v = torch.view_as_complex(
             xp[s0:s0 + SERIES_GROUP].to(dtype)
@@ -199,8 +194,22 @@ def planes(xp: torch.Tensor, nfft: int, ntap: int = 4, R: int = 8,
         for k in range(1, ntap):
             z = z + c[k] * v[:, :, k:k + nwin]
         del v
-        y = torch.einsum("km,smwn->skwn", a_mat, z) * tw
-        del z
+        yield s0, torch.einsum("km,smwn->skwn", a_mat, z) * tw
+
+
+def planes(xp: torch.Tensor, nfft: int, ntap: int = 4, R: int = 8,
+           stage_a: str = "full",
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain version of K12: planes ``(nseries, n1, nrow, 256)`` int16 ->
+    float32 ``(nseries, nfft)``, hamming FIR of ``ntap`` taps. ``dtype``:
+    the arithmetic, float32 or float64 (the on-card reference). ``R`` only
+    has to divide ``nrow``, as for the kernel: the sums do not depend on
+    it."""
+    nseries, n1, nrow = _planes_geometry(xp, nfft, ntap, R, stage_a)
+    out = torch.zeros((nseries, n1, L), dtype=dtype, device=xp.device)
+    if nrow - (ntap - 1) <= 0:
+        return out.reshape(nseries, nfft).to(torch.float32)
+    for s0, y in _twiddled(xp, nfft, ntap, stage_a, dtype):
         y = torch.fft.fft(y, dim=-1)
         out[s0:s0 + SERIES_GROUP] = (y.real.square()
                                      + y.imag.square()).sum(dim=2)
@@ -208,17 +217,35 @@ def planes(xp: torch.Tensor, nfft: int, ntap: int = 4, R: int = 8,
     return out.reshape(nseries, nfft).to(torch.float32)
 
 
+def planes_split(xp: torch.Tensor, nfft: int, ntap: int = 4,
+                 stage_a: str = "full",
+                 split: str = _common.KERNEL_SPLIT) -> np.ndarray:
+    """The kernel's arithmetic emulated on the CPU, float64 ``(nseries,
+    nfft)``: FIR, stage A and twiddle in float32, then the 128-point DFT as
+    ``csrc/tc_dft.cuh``'s three products under ``split``
+    (``_common.split_dft_power``)."""
+    nseries, n1, nrow = _planes_geometry(xp, nfft, ntap, 1, stage_a)
+    c1, c2, c3 = _common.dft_matrices()
+    out = np.zeros((nseries, n1, L))
+    for s0, y in _twiddled(xp.cpu(), nfft, ntap, stage_a, torch.float32):
+        out[s0:s0 + SERIES_GROUP] = _common.split_dft_power(
+            y.real.numpy(), y.imag.numpy(), c1, c2, c3, split).sum(axis=2)
+    return out.reshape(nseries, nfft)
+
+
 def planes_cuda(xp: torch.Tensor, nfft: int, ntap: int = 4, R: int = 8,
-                stage_a: str = "full") -> torch.Tensor:
+                stage_a: str = "full", lib=None) -> torch.Tensor:
     """K12 (``csrc/probe_planes.cu``) for a CUDA tensor, the plain version
-    (float32) for a CPU one. The kernel takes ``1 <= ntap <= 8``."""
+    (float32) for a CPU one. The kernel takes ``1 <= ntap <= 8``. ``lib``:
+    another build of the kernels (``probes/probe_compare.py``), else the
+    package's."""
     nseries, n1, nrow = _planes_geometry(xp, nfft, ntap, R, stage_a)
     if _on_cpu(xp):
         return planes(xp, nfft, ntap, R, stage_a)
     if ntap > 8:
         raise ValueError(f"the CUDA planes kernel takes ntap <= 8, got "
                          f"{ntap}")
-    lib = load_library()
+    lib = lib or load_library()
     if xp.data_ptr() % 16:
         raise ValueError("the kernels need 16-byte aligned blocks")
     coeffs = torch.from_numpy(PF.pfb_coeffs(nfft, ntap, "hamming",

@@ -338,7 +338,7 @@ def test_package_sources_are_found():
     names = [os.path.basename(s) for s in _build.sources(_build.CSRC_DIR)]
     assert "power.cu" in names and "stokes.cu" in names
     assert [os.path.basename(h) for h in _build.headers(_build.CSRC_DIR)] \
-        == ["geometry.cuh"]
+        == ["geometry.cuh", "tc_dft.cuh"]
 
 
 def test_source_hash_follows_sources(tmp_path):

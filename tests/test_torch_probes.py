@@ -17,6 +17,13 @@ from their files and left as they are):
   then feeds the port's plain version that same input: within 2e-5. The
   port is also held against the probe's numpy golden.
 
+The planes and Karatsuba kernels run their 128-point DFTs on the tensor
+cores in split precision (``csrc/tc_dft.cuh``). Their arithmetic is
+emulated here (``_common.round_tf32``/``round_bf16``/``split_matmul``,
+``planes_split``, ``karatsuba_planar_split``) and held within half the
+bound of the float64 goldens at the check sizes, for the kernels' 3xBF16
+and for 3xTF32; plain TF32, reported in each message, is over the bound.
+
 The CUDA wrappers take the plain versions for CPU tensors; on a CUDA tensor
 they build the kernel or raise. The kernels themselves run on the card only
 (``chip_smoke.py``).
@@ -260,6 +267,120 @@ def test_karatsuba_rejects_bad_shapes():
                                 R=48)
     with pytest.raises(ValueError, match="planar rows"):
         K.karatsuba_planar_cuda(torch.zeros((1, 64, 128), dtype=torch.int16))
+
+
+# --- the tensor-core DFT's split precision (csrc/tc_dft.cuh), emulated ------
+
+
+def _f32(*bits):
+    return np.array(bits, np.uint32).view(np.float32)
+
+
+def test_round_tf32_is_cvt_rna():
+    """10 stored mantissa bits, nearest, ties away from zero."""
+    x = np.float32(1.0)
+    ulp = 2.0 ** -10
+    got = _common.round_tf32(np.array(
+        [1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 4, 1 + 3 * ulp / 4,
+         1 + ulp + ulp / 2, x], np.float32))
+    want = np.array([1 + ulp, -(1 + ulp), 1, 1 + ulp, 1 + 2 * ulp, 1],
+                    np.float32)
+    np.testing.assert_array_equal(got, want)
+    r = _common.round_tf32(np.random.default_rng(0).standard_normal(
+        1000).astype(np.float32))
+    assert not (r.view(np.uint32) & np.uint32(0x1FFF)).any()
+
+
+def test_round_bf16_is_round_to_nearest_even():
+    ulp = 2.0 ** -7
+    got = _common.round_bf16(np.array(
+        [1 + ulp / 2, 1 + 3 * ulp / 2, -(1 + 3 * ulp / 2), 1 + ulp / 4],
+        np.float32))
+    want = np.array([1, 1 + 2 * ulp, -(1 + 2 * ulp), 1], np.float32)
+    np.testing.assert_array_equal(got, want)
+    assert _common.round_bf16(_f32(0x3F808000))[0] == 1.0     # tie, even
+
+
+@pytest.mark.parametrize("split,rel", [("3xbf16", 1e-4), ("3xtf32", 1e-6),
+                                       ("tf32", 2e-3)])
+def test_split_matmul_is_near_the_float64_product(split, rel):
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((16, 128)).astype(np.float32)
+    m = rng.standard_normal((128, 8)).astype(np.float32)
+    want = x.astype(np.float64) @ m.astype(np.float64)
+    got = _common.split_matmul(x, m, split)
+    assert np.abs(got - want).max() < rel * np.abs(want).max()
+
+
+def test_dft_matrices_are_karatsubas():
+    c1, c2, c3 = _common.dft_matrices()
+    w = np.exp(-2j * np.pi * np.outer(np.arange(128), np.arange(128)) / 128)
+    np.testing.assert_array_equal(c1, w.real.astype(np.float32))
+    np.testing.assert_array_equal(c2, (w.real + w.imag).astype(np.float32))
+    np.testing.assert_array_equal(c3, (w.real - w.imag).astype(np.float32))
+    z = np.random.default_rng(2).standard_normal((3, 256))
+    want = np.abs(np.fft.fft(z[:, :128] + 1j * z[:, 128:], axis=-1)) ** 2
+    got = _common.split_dft_power(z[:, :128], z[:, 128:], c1, c2, c3,
+                                  "3xtf32")
+    assert _err(got, want) < 1e-6
+
+
+KARATSUBA_INPUTS = {"check": K.check_rows,
+                    "6 x 64": lambda: _rows(41, 6, 64),
+                    "28 x 128": lambda: _rows(42, 28, 128)}
+
+
+@pytest.mark.parametrize("split", [_common.KERNEL_SPLIT, "3xtf32"])
+@pytest.mark.parametrize("name", sorted(KARATSUBA_INPUTS))
+def test_karatsuba_split_plan_within_bound(name, split):
+    """K13's arithmetic under the kernel's split, and under 3xTF32, against
+    the float64 golden: the kernel's split with at least 2x margin. Plain
+    TF32, reported in the message, is over the bound."""
+    rows = KARATSUBA_INPUTS[name]()
+    want = K.planar_golden(rows)
+    err = _err(K.karatsuba_planar_split(torch.from_numpy(rows), split), want)
+    tf32 = _err(K.karatsuba_planar_split(torch.from_numpy(rows), "tf32"),
+                want)
+    assert err < BOUND / 2, f"{split} {err:.3e} (plain TF32 {tf32:.3e})"
+    assert tf32 > BOUND, f"plain TF32 {tf32:.3e} is inside the bound"
+
+
+def _planes_golden_case(nfft):
+    n1 = nfft // 128
+    blk = JF.synthetic_block(rng=7, ndf=64, nchk=2)
+    xp = W.to_planes(torch.from_numpy(JF.block_to_rows(blk)), n1)
+    want = pfb_power_golden(blk, nfft, 4, shift=False).reshape(14, nfft)
+    return xp, want
+
+
+@pytest.mark.parametrize("split", [_common.KERNEL_SPLIT, "3xtf32"])
+@pytest.mark.parametrize("nfft,stage_a", [(128, "full"), (256, "full"),
+                                          (512, "full"), (1024, "full"),
+                                          (1024, "fft8")])
+def test_planes_split_plan_within_bound(nfft, stage_a, split):
+    """K12's arithmetic (FIR, stage A, twiddle in float32; the 128-point
+    DFT under the split) at every n1, lanes put in order and pols folded,
+    against the float64 golden: the kernel's split with at least 2x
+    margin. Plain TF32, reported in the message, is over the bound."""
+    xp, want = _planes_golden_case(nfft)
+
+    def folded(sp):
+        got = torch.from_numpy(W.planes_split(xp, nfft, 4, stage_a, sp))
+        return W.bins_in_order(got, nfft).reshape(14, 2, nfft).sum(dim=1)
+
+    err, tf32 = _err(folded(split), want), _err(folded("tf32"), want)
+    assert err < BOUND / 2, f"{split} {err:.3e} (plain TF32 {tf32:.3e})"
+    assert tf32 > BOUND, f"plain TF32 {tf32:.3e} is inside the bound"
+
+
+@pytest.mark.parametrize("stage_a", ["noswap", "none"])
+def test_planes_split_keeps_the_ablations(stage_a):
+    """The emulation computes the same function as the plain version for
+    the ablations too (their numbers, not their correctness)."""
+    xp = W.to_planes(torch.from_numpy(_rows(43, 3, 64)), 8)
+    want = W.planes(xp, 1024, 4, 8, stage_a, dtype=torch.float64)
+    got = W.planes_split(xp, 1024, 4, stage_a, _common.KERNEL_SPLIT)
+    assert _err(got, want) < BOUND / 2
 
 
 # --- wrappers and entry points ---------------------------------------------
