@@ -26,7 +26,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      block, full-range int16 drawn on the device, an all -32768 block and,
      for Stokes, a block whose y is x turned by 90 degrees (V = -I):
      bit-equal; the PFB kernel at nfft 128 and 1024, power and Stokes,
-     nout 1 and 64, vs its plain version in float64: within 2e-5;
+     nout 1 and 64 on wire, nout 1 and 8 on rows with the carry (the
+     bench's rows modes), vs its plain version in float64: within 2e-5;
   5. the main paths through the port's CLI: recordings written with the
      port's ``paf_gen`` (1024 x 48, wire and ORDER SERIES) checked against
      the plain version (and ``--pfb 2048`` and ``--pfb 128 --ntap 12``,
@@ -92,6 +93,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
      every run's ranks launch kernels, their counts summed per wrapper;
      c. with phase 8c, ``paf_soak --sharded-rows --device-layout --pfb 128
         --nspectra 64`` at ``SOAK_RATE``.
+ 10. the port's bench (``python -m paf_baseband2power_tpu_torch.bench``)
+     as processes at 8192 x 48: the default 10-mode matrix, ``--single``,
+     ``--stokes --scrunch 64``, ``--pfb 128``, ``--pfb 1024 --device-layout
+     --stokes --scrunch 8``, ``--pfb 2048`` (the torch.fft route, named in
+     its label), ``--h2d`` and ``--e2e --iters 6``: each line printed, its
+     keys present, its value positive, its card phase 1's; every mode
+     launched one wrapper, a CUDA one unless its label names the torch.fft
+     route (``--e2e``: ``baseband2power_cuda``); where phase 6 timed the same
+     wrapper at the same shape, the mode's ``block_ms`` within 2x of that
+     time, else printed beside the nearest.
 The last two lines are the kernels' JSON record and the result line.
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -115,6 +126,12 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+# outside a checkout this import fails, and the script with it. The fp32
+# rate is also the one used for the detection kernels' integer work.
+from paf_baseband2power_tpu_torch.h100 import (  # noqa: E402
+    BF16_FLOPS, FP32_FLOPS, HBM_BPS)
+
 FULL_NDF, NCHK = 8192, 48
 CSRC = "paf_baseband2power_tpu_torch/csrc/"
 PALLAS = "paf_baseband2power_tpu/ops/pallas_power.py"
@@ -123,10 +140,6 @@ REFERENCE = PALLAS.split("/", 1)[0]      # the JAX package, never imported
 PROBE_WIDE = "benchmarks/probe_wide_reshape.py"
 PROBE_KAR = "benchmarks/probe_karatsuba.py"
 BOUND_PFB = 2e-5     # peak-normalized, benchmarks/parity_tpu.py:BOUND_PFB
-# one H100 SXM (its published peak rates): HBM bytes/s, fp32
-# FLOP/s outside the tensor cores (also the rate used for the integer work
-# of the detection kernels), bf16 tensor-core FLOP/s (dense)
-HBM_BPS, FP32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
 # wrapper -> (its kernel's source, the pl.pallas_call it replaces). K2's
 # call stands for K3's at :290, the same entry point's other tile class;
 # K8's (:609, the tile class of nout 1 at 8192 frames) for K7's packed
@@ -187,6 +200,50 @@ MULTI_KERNELS = ("baseband2power_cuda", "baseband2power_scrunch_rows_cuda",
 # 1024 x 48 on 6 ports over loopback on the H100's 8-core host (0.1, both
 # modes; PERF.md, PR 7)
 SOAK_RATE = 0.05
+# phase 10: the bench's runs, each with, for a single mode, phase 6's time
+# that its block_ms is set beside (None: no such time) and whether that is
+# the same wrapper at the same shape (held within 2x) or only the nearest
+# (printed beside it); the matrix's rows have theirs in BENCH_MATRIX
+BENCH_RUNS = [
+    ((), None),
+    (("--single",), ("baseband2power_cuda", True)),
+    (("--stokes", "--scrunch", "64"), ("baseband2stokes_scrunch_cuda", True)),
+    (("--pfb", "128"), ("pfb_power_cuda (nfft 128 power)", True)),
+    (("--pfb", "1024", "--device-layout", "--stokes", "--scrunch", "8"),
+     ("pfb_spectra_cuda (nfft 1024 Stokes)", False)),
+    (("--pfb", "2048"), (None, False)),     # the torch.fft route
+    (("--h2d",), None),
+    (("--e2e", "--iters", "6"), None),
+]
+# the matrix's 10 rows, in its order, each with its phase 6 reference
+BENCH_MATRIX = {
+    "power": ("baseband2power_cuda", True),
+    "power rows": ("baseband2power_scrunch_rows_cuda", True),
+    "stokes": ("baseband2stokes_cuda", True),
+    "scrunch[64]": ("baseband2power_scrunch_cuda", True),
+    "stokes x scrunch[64]": ("baseband2stokes_scrunch_cuda", True),
+    "stokes rows": ("baseband2stokes_scrunch_rows_cuda", True),
+    "stokes x scrunch[64] rows": ("baseband2stokes_scrunch_rows_cuda", False),
+    "pfb 128 rows streaming": ("pfb_power_cuda (nfft 128 power)", False),
+    "pfb 128 x stokes rows streaming": ("pfb_spectra_cuda (nfft 128 Stokes)",
+                                        False),
+    "pfb 1024 rows streaming": ("pfb_power_cuda (nfft 1024 power)", False),
+}
+# the keys of each kind of bench line (and of a matrix row)
+BENCH_KEYS = {
+    "matrix": {"metric", "value", "unit", "vs_baseline", "hbm_fraction",
+               "matrix", "device"},
+    "row": {"mode", "block_ms", "x_realtime", "samples_per_sec",
+            "hbm_fraction", "launches", "wrappers"},
+    "single": {"metric", "value", "unit", "vs_baseline", "block_ms",
+               "hbm_fraction", "launches", "wrappers", "device"},
+    "h2d": {"metric", "value", "unit", "vs_baseline", "block_bytes",
+            "block_sec", "pinned_bytes_per_sec", "pinned_block_sec",
+            "pinned_vs_baseline", "device"},
+    "e2e": {"metric", "value", "unit", "vs_baseline", "block_sec",
+            "block_stream_sec", "depth", "nblocks", "kernel_launches",
+            "wrappers", "device"},
+}
 
 
 def log(*a) -> None:
@@ -398,7 +455,6 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this test "
               "needs a CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, ROOT)
     from paf_baseband2power_tpu_torch.cli import paf_baseband2power as cli
     from paf_baseband2power_tpu_torch.cli import paf_gen
     from paf_baseband2power_tpu_torch.ops import _build
@@ -691,7 +747,31 @@ def main() -> int:
                     f"nout={nout} carry={carry is not None}: max abs err "
                     f"{e[0]:.6g}, peak-normalized {e[1]:.3e}")
                 del got, want
-    del big, big_rows, prev
+    # series rows, as the bench's rows modes and --device-layout feed them:
+    # pfb_spectra_cuda at every nout (the streaming step's wrapper), with
+    # the carry of another full-range block
+    prev_rows = prev.view(rows_shape)
+    for nfft in (128, 1024):
+        carry = PF.pfb_history(prev_rows, nfft, 4, "rows")
+        for stokes in (False, True):
+            for nout in (1, 8):
+                kw = dict(nout=nout, stokes=stokes, history=carry,
+                          layout="rows")
+                got = CF.pfb_spectra_cuda(big_rows, nfft, 4, **kw)
+                want = PF.pfb_spectra(big_rows, nfft, 4, dtype=torch.float64,
+                                      **kw)
+                e = peak_err(got, want)
+                pfb_err["pfb_spectra_cuda"] = [
+                    max(a, b) for a, b in zip(pfb_err["pfb_spectra_cuda"], e)]
+                check(e[1] < BOUND_PFB,
+                      f"PFB rows 8192 x 48 nfft={nfft} stokes={stokes} "
+                      f"nout={nout}: {e[1]:.3e} peak-normalized against the "
+                      "float64 plain version")
+                log(f"[4] PFB rows 8192 x 48 nfft={nfft} stokes={stokes} "
+                    f"nout={nout} carry=True: max abs err {e[0]:.6g}, "
+                    f"peak-normalized {e[1]:.3e}")
+                del got, want
+    del big, big_rows, prev, prev_rows, carry
 
     # --- 5. main path through the CLI ----------------------------------------
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke-") as tmp:
@@ -864,6 +944,7 @@ def main() -> int:
     ]
     gb = big.numel() * 2 / 1e9
     kernels = []
+    phase6 = {}     # phase 10's reference: wrapper (and PFB case) -> ms
     for name, (kern, plain, nout_f, ops) in timed.items():
         # plain, kernel, kernel, plain: both measured in the same window
         p1 = cuda_ms(plain, 5)
@@ -871,6 +952,7 @@ def main() -> int:
         k2 = cuda_ms(kern, 20)
         p2 = cuda_ms(plain, 5)
         ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        phase6[name] = ms
         bound_ms, bound_by = bound(n16 * 2 + nout_f * 4, n16 * ops)
         log(f"[6] {name}: {ms:.4f} ms/block ({gb / ms * 1e3:.1f} GB/s), "
             f"plain {plain_ms:.4f} ms/block ({gb / plain_ms * 1e3:.1f} "
@@ -891,6 +973,7 @@ def main() -> int:
         k2 = cuda_ms(kern, 5)
         p2 = cuda_ms(plain, 2)
         ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        phase6[f"{name} ({case})"] = ms
         bound_ms, bound_by = bound(
             n16 * 2 + nout * (4 if stokes else 1) * nchan * nfft * 4,
             pfb_ops(n16 // 2, nfft, 4, stokes))
@@ -919,6 +1002,11 @@ def main() -> int:
     # --- 8c. the soak: live capture -> ring -> CUDA compute ------------------
     torch.cuda.empty_cache()
     soak_phase(smi)
+
+    # --- 10. the bench ------------------------------------------------------
+    bench_launches = bench_phase(phase6, smi)
+    for k in kernels:
+        k["launches_bench"] = bench_launches[k["name"]]
     check(sorted(k["name"] for k in kernels) == sorted(KERNELS),
           "one record per wrapper")
     loaded = sorted(m for m in sys.modules
@@ -1220,6 +1308,87 @@ def soak_phase(smi: str) -> list[dict]:
               f"within 3 runs: {r.stderr[-3000:]}")
         reports.append(report)
     return reports
+
+
+def bench_phase(phase6: dict, smi: str) -> collections.Counter:
+    """Phase 10: each of ``BENCH_RUNS`` as a process, its JSON line printed
+    and checked (keys, value, card, the one wrapper each mode launched, its
+    time against phase 6's); returns the launches of all runs by
+    wrapper."""
+    launched = collections.Counter()
+    for argv, ref in BENCH_RUNS:
+        what = " ".join(argv) or "(the matrix)"
+        if "--e2e" in argv:
+            log(f"[10] bench {what}: {host_memory()}")
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "paf_baseband2power_tpu_torch.bench",
+             *argv], env=stage_env(), capture_output=True, text=True,
+            timeout=600)
+        wall = time.perf_counter() - t0
+        check(r.returncode == 0, f"bench {what} exit code {r.returncode}: "
+              f"{r.stderr[-3000:]}")
+        out = r.stdout.strip().splitlines()
+        check(len(out) == 1, f"bench {what} printed one line: {out}")
+        line = json.loads(out[0])
+        log(f"[10] bench {what}: {wall:.3f} s wall; {r.stderr.strip()}")
+        log(out[0])
+        kind = ("h2d" if "--h2d" in argv else "e2e" if "--e2e" in argv
+                else "single" if argv else "matrix")
+        check(set(line) == BENCH_KEYS[kind],
+              f"bench {what} keys {sorted(line)}")
+        check(line["value"] > 0, f"bench {what}: value {line['value']}")
+        check(line["device"]["nvidia_smi"] == smi,
+              f"bench {what} ran on {line['device']}")
+        if kind == "h2d":
+            check(line["pinned_bytes_per_sec"] > 0, f"bench {what} pinned")
+            continue
+        if kind == "e2e":
+            # PowerPipeline's default step: direct power on wire blocks
+            check(line["nblocks"] == 16 and line["wrappers"]
+                  == {"baseband2power_cuda": line["kernel_launches"]},
+                  f"bench {what}: 16 blocks, each a baseband2power_cuda "
+                  f"launch: {line['wrappers']}")
+            launched.update(line["wrappers"])
+            continue
+        if kind == "matrix":
+            rows = line["matrix"]
+            check([row["mode"] for row in rows] == list(BENCH_MATRIX),
+                  f"bench matrix modes {[row['mode'] for row in rows]}")
+            check(all(set(row) == BENCH_KEYS["row"] for row in rows),
+                  "bench matrix rows' keys")
+            rows = [(row, row["mode"], *BENCH_MATRIX[row["mode"]])
+                    for row in rows]
+        else:
+            rows = [(line, what, *ref)]
+        for row, mode, ref, same in rows:
+            # the torch.fft route only where the label names it; else one
+            # CUDA wrapper, and the same one as phase 6's same-shape time
+            fft = "torch.fft" in line["metric"]
+            check(len(row["wrappers"]) == 1 and row["launches"] > 0
+                  and row["launches"] == sum(row["wrappers"].values()),
+                  f"bench {mode} launched one wrapper: {row['wrappers']}")
+            wrapper, = row["wrappers"]
+            check((wrapper == "pfb_torch") if fft else (wrapper in KERNELS),
+                  f"bench {mode} launched {wrapper}, torch.fft named: {fft}")
+            check(not same or ref.split()[0] == wrapper,
+                  f"bench {mode} launched {wrapper}, phase 6 timed {ref}")
+            launched.update(row["wrappers"])
+            if ref is None:
+                log(f"[10] {mode}: {row['block_ms']:.4f} ms/block, "
+                    f"launches {row['wrappers']}; no phase 6 time")
+                continue
+            ratio = row["block_ms"] / phase6[ref]
+            log(f"[10] {mode}: {row['block_ms']:.4f} ms/block "
+                f"(hbm_fraction {row['hbm_fraction']:.4f}), launches "
+                f"{row['wrappers']}; phase 6 {ref} {phase6[ref]:.4f} ms, "
+                f"{ratio:.3f}x ({'the same shape' if same else 'nearest'}) "
+                f"on {smi}")
+            if same:
+                check(0.5 <= ratio <= 2.0,
+                      f"bench {mode} within 2x of phase 6's {ref}: "
+                      f"{ratio:.3f}x")
+    return launched
 
 
 def run_main(fn, argv: list[str]) -> dict:
