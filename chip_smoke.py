@@ -103,6 +103,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
      route (``--e2e``: ``baseband2power_cuda``); where phase 6 timed the same
      wrapper at the same shape, the mode's ``block_ms`` within 2x of that
      time, else printed beside the nearest.
+ 11. the parity sweeps and the measurement tools:
+     a. ``parity.run_sweep`` at 4096 x 2 with nout 64 (75 cases: every
+        CUDA wrapper x layout x streaming case) against the float64 numpy
+        goldens: every case ok and each launched its wrapper; the worst
+        error of each wrapper printed;
+     b. ``parity.run_full`` at 8192 x 48, its 7 direct cases, against the
+        goldens computed chunk by chunk in a process pool: the same checks;
+     c. ``tools/host_runtime.py`` at its defaults (64 MB ring blocks) on
+        free UDP ports: ring GB/s, the sender's frames/s alone, capture's
+        frames/s and the fraction received;
+     d. ``tools/multibeam.py`` with 2 beams of ``MULTIBEAM_BLOCKS`` 8192 x
+        48 blocks on 2 gloo ranks sharing the card (every multibeam record
+        equal to the serial pipeline's), and ``tools/scaling.py`` at 8192
+        x 48 per rank, world sizes 1 (``nccl``) and 2 (``gloo``), each
+        point's output equal to the single-device kernel's.
+     The launches of 11a-b are counted per wrapper (``launches_parity``).
 The last two lines are the kernels' JSON record and the result line.
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -200,6 +216,13 @@ MULTI_KERNELS = ("baseband2power_cuda", "baseband2power_scrunch_rows_cuda",
 # 1024 x 48 on 6 ports over loopback on the H100's 8-core host (0.1, both
 # modes; PERF.md, PR 7)
 SOAK_RATE = 0.05
+# phase 11b: the direct cases of parity.run_full (its PFB cases' goldens
+# take minutes; ``python -m paf_baseband2power_tpu_torch.parity --full``
+# runs all 15)
+PARITY_DIRECT = r"^(power|stokes|scrunch)"
+# phase 11d: blocks per beam of tools/multibeam at 8192 x 48 (rank 0 holds
+# both beams' in host memory beside the pipeline's four pinned slots)
+MULTIBEAM_BLOCKS = 3
 # phase 10: the bench's runs, each with, for a single mode, phase 6's time
 # that its block_ms is set beside (None: no such time) and whether that is
 # the same wrapper at the same shape (held within 2x) or only the nearest
@@ -451,6 +474,7 @@ def write_full_recording(path: str, layout: str, nblocks: int,
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test "
               "needs a CUDA device", file=sys.stderr)
@@ -1005,8 +1029,16 @@ def main() -> int:
 
     # --- 10. the bench ------------------------------------------------------
     bench_launches = bench_phase(phase6, smi)
+
+    # --- 11. the parity sweeps and the measurement tools ---------------------
+    t11 = time.perf_counter()
+    parity_launches = parity_phase(dev, smi)
+    tools_phase(smi)
+    log(f"[11] phase 11 took {time.perf_counter() - t11:.1f} s; the script "
+        f"{time.perf_counter() - t_start:.1f} s so far")
     for k in kernels:
         k["launches_bench"] = bench_launches[k["name"]]
+        k["launches_parity"] = parity_launches[k["name"]]
     check(sorted(k["name"] for k in kernels) == sorted(KERNELS),
           "one record per wrapper")
     loaded = sorted(m for m in sys.modules
@@ -1389,6 +1421,137 @@ def bench_phase(phase6: dict, smi: str) -> collections.Counter:
                       f"bench {mode} within 2x of phase 6's {ref}: "
                       f"{ratio:.3f}x")
     return launched
+
+
+def parity_phase(dev: torch.device, smi: str) -> collections.Counter:
+    """Phases 11a-b: the parity sweeps in this process, their per-case
+    lines held back; returns their launches by wrapper."""
+    from paf_baseband2power_tpu_torch import parity
+    from paf_baseband2power_tpu_torch.ops import cuda_power as CP
+
+    launched = collections.Counter()
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke-") as tmp:
+        runs = [
+            ("11a", "run_sweep 4096 x 2, nout 64", 75,
+             lambda: parity.run_sweep(4096, 2, os.path.join(tmp, "s.json"),
+                                      64, dev)),
+            ("11b", f"run_full {FULL_NDF} x {NCHK}, direct cases", 7,
+             lambda: parity.run_full(os.path.join(tmp, "f.json"),
+                                     FULL_NDF, NCHK, dev, PARITY_DIRECT)),
+        ]
+        for tag, what, ncases, run in runs:
+            CP.launches.clear()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                report = run()
+            wall = time.perf_counter() - t0
+            launched.update(CP.launches)
+            cases = report["cases"]
+            bad = [(c["mode"], c.get("err", c.get("error")),
+                    c.get("launches")) for c in cases
+                   if not (c["ok"] and c.get("launches", 0) > 0)]
+            check(len(cases) == ncases and not bad and report["ok"],
+                  f"parity {what}: {len(cases)} cases, failed {bad}")
+            check(report["device"]["nvidia_smi"] == smi,
+                  f"parity {what} ran on {report['device']}")
+            worst = collections.defaultdict(float)
+            for c in cases:
+                worst[c["wrapper"]] = max(worst[c["wrapper"]], c["err"])
+            secs = {k: sum(c[k] for c in cases)
+                    for k in ("sec", "kernel_sec", "golden_sec")
+                    if k in cases[0]}
+            log(f"[{tag}] parity {what}: {ncases} of {ncases} ok, each "
+                f"launched its wrapper ({dict(CP.launches)}), {wall:.1f} s "
+                f"wall (cases {secs}) on {smi}; worst error per wrapper "
+                f"(peak-normalized): {dict(worst)}")
+    return launched
+
+
+def tools_phase(smi: str) -> None:
+    """Phases 11c-d: ``tools/host_runtime.py``, ``tools/multibeam.py``
+    and ``tools/scaling.py`` as processes."""
+    def tool(name: str, argv: list[str]) -> tuple[str, float]:
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", f"paf_baseband2power_tpu_torch.tools."
+             f"{name}", *argv], env=stage_env(), capture_output=True,
+            text=True, timeout=600)
+        check(r.returncode == 0, f"tools.{name} {argv} exit code "
+              f"{r.returncode}: {r.stderr[-3000:]}")
+        return r.stdout, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke-") as tmp:
+        out = os.path.join(tmp, "host.json")
+        base = free_udp_base((0, 1, 400, 401))
+        _, wall = tool("host_runtime", ["--out", out, "--port-base",
+                                        str(base)])
+        with open(out) as f:
+            host = json.load(f)
+        ring, alone, cap = host["ring"], host["sender_only"], host["capture"]
+        check(set(host) == {"physical_cores", "ring", "sender_only",
+                            "capture"} and ring["GBps"] > 0
+              and alone["frames_per_sec"] > 0 and cap["received_frames"] > 0,
+              f"host_runtime report {host}")
+        log(f"[11c] host_runtime ({wall:.1f} s, {host['physical_cores']} "
+            f"cores, UDP ports from {base}): ring {ring['GBps']:.4f} GB/s "
+            f"({ring['block_mb']} MB x "
+            f"{ring['nblocks']} blocks); sender alone "
+            f"{alone['frames_per_sec']:.0f} frames/s (burst "
+            f"{alone['burst']}, {alone['GBps']:.4f} GB/s, "
+            f"{alone['x_bmf_rate']:.4f}x the 48-chunk rate); capture "
+            f"({cap['nchk']} chunks, {cap['nports']} ports): sender "
+            f"{cap['sender_frames_per_sec']:.0f} frames/s, received "
+            f"{cap['received_frames']} ({cap['received_fraction']:.4f}); "
+            f"host of {smi}")
+
+        log(f"[11d] before multibeam: {host_memory()}")
+        stdout, wall = tool("multibeam", ["--ranks", "2", "--backend",
+                                          "gloo", "--ndf", str(FULL_NDF),
+                                          "--nchk", str(NCHK), "--nblocks",
+                                          str(MULTIBEAM_BLOCKS)])
+        mb = json.loads(stdout.strip().splitlines()[-1])
+        check(mb["nbeam"] == 2 and mb["blocks"] == MULTIBEAM_BLOCKS
+              and mb["mesh"] == {"beam": 2, "time": 1, "chunk": 1},
+              f"multibeam report {mb}")
+        log(f"[11d] multibeam, 2 beams of {MULTIBEAM_BLOCKS} blocks of "
+            f"{FULL_NDF} x {NCHK} on 2 gloo ranks on the card ({wall:.1f} s "
+            f"wall), every record equal to the serial pipeline's: "
+            f"{json.dumps(mb)} on {smi}")
+
+        out = os.path.join(tmp, "scaling.json")
+        stdout, wall = tool("scaling", ["--ranks", "2", "--ndf-per-dev",
+                                        str(FULL_NDF), "--out", out])
+        with open(out) as f:
+            sc = json.load(f)
+        check(sc["dist_backend"] == {"1": "nccl", "2": "gloo"}
+              and sc["ndf_per_device"] == FULL_NDF
+              and [p["devices"] for p in sc["points"]] == [1, 2]
+              and sc["device"]["nvidia_smi"] == smi,
+              f"scaling report {sc}")
+        log(f"[11d] scaling, world sizes 1 (nccl) and 2 (gloo, one card), "
+            f"{sc['ndf_per_device']} frames x {NCHK} per rank ({wall:.1f} s "
+            f"wall), outputs equal to the single-device kernel's: "
+            f"{json.dumps(sc['points'])} on {smi}")
+
+
+def free_udp_base(offsets: tuple[int, ...], lo: int = 28300) -> int:
+    """The first base port from ``lo`` up, in steps of 10, whose
+    ``offsets`` are all free UDP ports on the loopback."""
+    import socket
+
+    for base in range(lo, lo + 1000, 10):
+        socks = []
+        try:
+            for off in offsets:
+                socks.append(socket.socket(socket.AF_INET, socket.SOCK_DGRAM))
+                socks[-1].bind(("127.0.0.1", base + off))
+            return base
+        except OSError:
+            continue
+        finally:
+            for sk in socks:
+                sk.close()
+    raise RuntimeError(f"no free UDP ports at {offsets} from {lo}")
 
 
 def run_main(fn, argv: list[str]) -> dict:

@@ -47,7 +47,6 @@ import argparse
 import collections
 import dataclasses
 import json
-import subprocess
 import sys
 import time
 from typing import Callable
@@ -61,34 +60,13 @@ from .ops import cuda_pfb as CF
 from .ops import cuda_power as CP
 from .ops import pfb as PF
 from .ops import power as P
-from .probes._common import add_platform, describe, device_for, slope, timer
+from .probes._common import (add_platform, card, device_for,
+                              make_block_2d, make_block_rows, slope, timer)
 
 BASELINE_SAMPLES_PER_SEC = 796.4e6  # 336 chan * 2 pol * 1.185185 Msamp/s
 H2D_BASELINE_BPS = 3.19e9           # capture line rate (capture.h:28,30)
 NTAP = 4                            # PFB taps in every bench mode
 QUICK_NDF = 256
-
-
-def make_block_2d(ndf: int, device: torch.device, seed: int = 0,
-                  nchk: int = C.NCHK_NIC) -> torch.Tensor:
-    """Wire block ``(ndf, nchk * 3584)`` int16 in [-256, 256), drawn on
-    ``device``."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    return torch.randint(-256, 256, (ndf, nchk * P.LANES_PER_CHUNK),
-                         dtype=torch.int16, device=device, generator=gen)
-
-
-def make_block_rows(ndf: int, device: torch.device, seed: int = 0,
-                    nchk: int = C.NCHK_NIC) -> torch.Tensor:
-    """Series rows ``(nchk * 14, ndf, 256)`` int16 in [-256, 256), as the
-    capture engine's device-layout mode delivers them, drawn on
-    ``device``."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    nseries = nchk * C.NCHAN_CHK * C.NPOL_SAMP
-    return torch.randint(-256, 256, (nseries, ndf, P.ROW_LANES),
-                         dtype=torch.int16, device=device, generator=gen)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -242,19 +220,6 @@ def rates(what: str, dt: float, block: torch.Tensor, ops: Ops,
         "launches": launches,
         "wrappers": launched,
     }
-
-
-def card(device: torch.device) -> dict:
-    """The device a line was measured on; for a card, also ``nvidia-smi``'s
-    name and power limit."""
-    out = describe(device)
-    if device.type == "cuda":
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            check=True).stdout
-        out["nvidia_smi"] = "; ".join(smi.strip().splitlines())
-    return out
 
 
 def bench_matrix(ndf: int, iters: int, ops: Ops, device: torch.device,

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ..constants import NCHAN_CHK, NPOL_SAMP, NSAMP_DF
+from .pfb_golden import pfb_coeffs
 from .power import LANES_PER_CHUNK, ROW_LANES
 
 # the fine-channel sizes the JAX package's rows path takes
@@ -47,27 +48,6 @@ from .power import LANES_PER_CHUNK, ROW_LANES
 ROWS_NFFTS = (128, 256, 512, 1024)
 # and the most taps it takes (``pallas_pfb.py:pfb_spectra_fused``)
 ROWS_MAX_NTAP = 8
-
-
-def pfb_coeffs(nfft: int, ntap: int = 4, window: str = "hamming",
-               dtype=np.float32) -> np.ndarray:
-    """Prototype low-pass FIR folded to ``(ntap, nfft)``: a windowed sinc
-    with its cutoff at the fine-channel width, normalized to unit DC gain
-    per phase (the JAX package's ``pfb_coeffs``)."""
-    n = np.arange(ntap * nfft, dtype=np.float64)
-    x = n / nfft - ntap / 2.0
-    sinc = np.sinc(x)
-    if window == "hamming":
-        win = np.hamming(ntap * nfft)
-    elif window == "hanning":
-        win = np.hanning(ntap * nfft)
-    elif window == "rect":
-        win = np.ones(ntap * nfft)
-    else:
-        raise ValueError(f"unknown window '{window}'")
-    h = (sinc * win).reshape(ntap, nfft)
-    h /= h.sum(axis=0).mean()
-    return h.astype(dtype)
 
 
 def check_rows_nfft(nfft: int) -> None:

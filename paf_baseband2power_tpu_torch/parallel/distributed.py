@@ -28,6 +28,9 @@ from __future__ import annotations
 
 import datetime
 import os
+import socket
+import subprocess
+import sys
 
 import torch
 import torch.distributed as dist
@@ -228,3 +231,43 @@ def all_agree(flag: bool, device: torch.device) -> bool:
     t = torch.tensor([int(flag)], dtype=torch.int32, device=dev)
     dist.all_reduce(t, op=dist.ReduceOp.MIN)
     return bool(t.item())
+
+
+def _free_port() -> int:
+    """A free TCP port on localhost (for rank 0's store)."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(module: str, argv: list[str], ranks: int,
+                timeout: float) -> list[tuple[int, str, str]]:
+    """Run ``python -m module *argv --rank r`` for every rank ``r`` on this
+    host, bootstrapped through ``PAFB2P_*`` on a free localhost port (rank
+    ``r`` drives card ``r``); returns each rank's ``(returncode, stdout,
+    stderr)``. Every rank still running after ``timeout`` seconds is
+    killed."""
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    port = _free_port()
+    procs = []
+    for r in range(ranks):
+        env = dict(os.environ, PYTHONPATH=root + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""),
+                   PAFB2P_COORDINATOR=f"127.0.0.1:{port}",
+                   PAFB2P_NUM_PROCS=str(ranks), PAFB2P_PROC_ID=str(r),
+                   PAFB2P_LOCAL_RANK=str(r))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", module, *argv, "--rank", str(r)],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [(p.returncode, o, e) for p, (o, e) in zip(procs, outs)]

@@ -23,18 +23,15 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
-import socket
-import subprocess
 import sys
 import time
 
 import torch
 import torch.distributed as dist
 
+from .distributed import spawn_ranks
+
 BOUND_PFB = 2e-5
-_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
 
 
 def _cases(world: int, nfft: int):
@@ -183,12 +180,6 @@ def rank_main(args) -> dict | None:
     return report if rank == 0 else None
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="selfcheck")
     ap.add_argument("--ranks", type=int, default=0,
@@ -214,32 +205,10 @@ def main(argv=None) -> int:
         return 0
     ranks = args.ranks or (torch.cuda.device_count()
                            if args.platform == "cuda" else 2)
-    port = _free_port()
-    procs = []
-    for r in range(ranks):
-        env = dict(os.environ, PYTHONPATH=_ROOT + os.pathsep
-                   + os.environ.get("PYTHONPATH", ""),
-                   PAFB2P_COORDINATOR=f"127.0.0.1:{port}",
-                   PAFB2P_NUM_PROCS=str(ranks), PAFB2P_PROC_ID=str(r),
-                   PAFB2P_LOCAL_RANK=str(r))
-        procs.append(subprocess.Popen(
-            [sys.executable, "-m", __spec__.name, *(argv or sys.argv[1:]),
-             "--rank", str(r), "--backend", args.backend],
-            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True))
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=args.timeout))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    failed = [(r, p.returncode, e[-2000:])
-              for r, (p, (_, e)) in enumerate(zip(procs, outs))
-              if p.returncode]
-    report = (json.loads(outs[0][0].strip().splitlines()[-1])
+    outs = spawn_ranks(__spec__.name, [*(argv or sys.argv[1:]), "--backend",
+                                       args.backend], ranks, args.timeout)
+    failed = [(r, rc, e[-2000:]) for r, (rc, _, e) in enumerate(outs) if rc]
+    report = (json.loads(outs[0][1].strip().splitlines()[-1])
               if not failed else [])
     print(json.dumps({
         "device": {"platform": "gpu" if args.platform == "cuda" else "cpu",

@@ -1,12 +1,18 @@
-"""What the probes' entry points share: the device, the timer, the check."""
+"""What the entry points share (the probes, the bench, ``parity`` and the
+tools): the device and its description, blocks drawn on it, the timer, the
+check."""
 
 from __future__ import annotations
 
 import argparse
+import subprocess
 import time
 
 import numpy as np
 import torch
+
+from .. import constants as C
+from ..ops import power as P
 
 PARITY_BOUND = 2e-5      # peak-normalized, the JAX sweep's BOUND_PFB
 
@@ -33,6 +39,41 @@ def describe(device: torch.device) -> dict:
         return {"platform": "gpu",
                 "kind": torch.cuda.get_device_name(device)}
     return {"platform": "cpu", "kind": "cpu"}
+
+
+def card(device: torch.device) -> dict:
+    """The device a line was measured on; for a card, also ``nvidia-smi``'s
+    name and power limit."""
+    out = describe(device)
+    if device.type == "cuda":
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout
+        out["nvidia_smi"] = "; ".join(smi.strip().splitlines())
+    return out
+
+
+def make_block_2d(ndf: int, device: torch.device, seed: int = 0,
+                  nchk: int = C.NCHK_NIC) -> torch.Tensor:
+    """Wire block ``(ndf, nchk * 3584)`` int16 in [-256, 256), drawn on
+    ``device``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return torch.randint(-256, 256, (ndf, nchk * P.LANES_PER_CHUNK),
+                         dtype=torch.int16, device=device, generator=gen)
+
+
+def make_block_rows(ndf: int, device: torch.device, seed: int = 0,
+                    nchk: int = C.NCHK_NIC) -> torch.Tensor:
+    """Series rows ``(nchk * 14, ndf, 256)`` int16 in [-256, 256), as the
+    capture engine's device-layout mode delivers them, drawn on
+    ``device``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    nseries = nchk * C.NCHAN_CHK * C.NPOL_SAMP
+    return torch.randint(-256, 256, (nseries, ndf, P.ROW_LANES),
+                         dtype=torch.int16, device=device, generator=gen)
 
 
 def timer(step, device: torch.device):

@@ -5,7 +5,8 @@ JAX package, and its copies of that package's numpy/ctypes modules
 with ``native/sender``, ``ops/frame``, ``ops/time_utils``, ``runtime/log``,
 ``runtime/debug``, ``cli/paf_gen``, ``cli/paf_diskdb``, ``cli/paf_dbdisk``,
 ``cli/paf_db``, ``cli/paf_monitor``, ``cli/paf_capture``,
-``cli/paf_relayout``) are held against
+``cli/paf_relayout``, the goldens ``ops/golden`` and ``ops/pfb_golden``)
+are held against
 their originals here: equal constants, byte-equal headers, files and native
 sources, equal arrays, the same options and structures, and rings that the
 two packages read from each other. ``tests/test_torch_topology.py`` and
@@ -154,6 +155,12 @@ sinks = [pipeline.MemorySink()]
 assert multibeam.run_multibeam(
     [pipeline.SyntheticSource(2, ndf=16, nchk=4)], mesh.make_beam_mesh(1),
     sinks, device="cpu").nblocks == 2 and len(sinks[0].records) == 2
+# the parity sweep on its goldens, and the host tools
+from paf_baseband2power_tpu_torch import parity
+from paf_baseband2power_tpu_torch.tools import host_runtime
+assert parity.run_sweep(16, 1, os.path.join(tmp, "p.json"), 1, "cpu",
+                        cases="^(power|stokes) wire$|^pfb 32")["ok"]
+assert host_runtime.bench_ring(block_mb=1, nblocks=2)["GBps"] > 0
 spec = importlib.util.spec_from_file_location(
     "chip_smoke", os.path.join(sys.argv[2], "chip_smoke.py"))
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -168,8 +175,9 @@ def test_port_never_imports_jax(tmp_path):
     file and ring source and sink), a probe, the topology's modules (config,
     launcher, paf_db, paf_diskdb, paf_dbdisk, paf_monitor, capture and
     both senders), paf_relayout, paf_multihost and run_multibeam at world
-    size 1 and ``chip_smoke`` (imported, not run) load neither jax nor any
-    module of the JAX package."""
+    size 1, the parity sweep on its goldens, the host tools' ring bench and
+    ``chip_smoke`` (imported, not run) load neither jax nor any module of
+    the JAX package."""
     r = subprocess.run([sys.executable, "-c", _STANDALONE, str(tmp_path),
                         REPO], env=dict(os.environ, PYTHONPATH=REPO),
                        capture_output=True, text=True, timeout=300)
@@ -317,6 +325,38 @@ def test_debug_switch_and_log(tmp_path, monkeypatch):
     for h in log.handlers:
         h.flush()
     assert "hello" in (tmp_path / "standalone-test.log").read_text()
+
+
+def test_golden_module_is_a_byte_copy():
+    """``ops/golden.py`` is the JAX package's file, byte for byte (its only
+    import is the package's own ``constants``, equal name by name)."""
+    names = [os.path.join(REPO, pkg, "ops", "golden.py")
+             for pkg in ("paf_baseband2power_tpu",
+                         "paf_baseband2power_tpu_torch")]
+    with open(names[0], "rb") as a, open(names[1], "rb") as b:
+        assert a.read() == b.read()
+
+
+@pytest.mark.parametrize("name", ["pfb_coeffs", "channelize_golden",
+                                  "pfb_power_golden", "pfb_spectra_golden"])
+def test_pfb_goldens_are_text_copies(name):
+    """``ops/pfb_golden.py`` holds the numpy half of the JAX package's
+    ``ops/pfb.py``, function for function, statement for statement: the
+    same signature and body once the docstrings are set aside (the arrays
+    are held equal in ``tests/test_torch_parity.py``)."""
+    import ast
+    import inspect
+
+    from paf_baseband2power_tpu.ops import pfb as JPFB
+    from paf_baseband2power_tpu_torch.ops import pfb_golden as PG
+
+    def code(fn) -> str:
+        node = ast.parse(inspect.getsource(fn)).body[0]
+        if ast.get_docstring(node) is not None:
+            node.body = node.body[1:]
+        return ast.dump(node)
+
+    assert code(getattr(PG, name)) == code(getattr(JPFB, name))
 
 
 # --- the ring: the two packages read each other's rings ---------------------
