@@ -32,7 +32,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
      port's ``paf_gen`` (1024 x 48, wire and ORDER SERIES) checked against
      the plain version (and ``--pfb 2048`` and ``--pfb 128 --ntap 12``,
      the torch.fft route, on the wire one), then recordings of full 8192 x
-     48 blocks checked
+     48 blocks (2 wire, cut from 3 for phase 12's time, and 2 rows) checked
      against the plain versions: the power path (wire, wire x 64 spectra,
      ORDER SERIES), the Stokes path (the same three with ``--stokes``,
      NPOL 4 headers) and the PFB path (``--pfb 128`` and ``--pfb 1024
@@ -71,7 +71,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
         equal to the CLI's);
      c. after phase 7, ``paf_soak`` (UDP capture over loopback -> ring ->
         CUDA compute) at 1024 x 48 on 6 ports, ``--device-layout``, power
-        and ``--pfb 128 --nspectra 64``, 10 s each at ``SOAK_RATE``, then
+        and ``--pfb 128 --nspectra 64``, 5 s each at ``SOAK_RATE`` (2
+        blocks; cut from 10 s for phase 12's time), then
         at 1024 x 2 on one port, rate 1.0, 5 s: each report passes, with
         kernel launches, within three runs.
      ``/dev/shm``'s free bytes and ``MemAvailable`` are printed before each.
@@ -79,7 +80,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
      processes on phase 5b's full-size recordings while each is on disk,
      every rank reading its own slice of each block:
      a. world size 1, ``--dist-backend nccl``: power, ``--stokes`` and
-        ``--pfb 1024 --stokes --nspectra 8`` (3 blocks, the carry across
+        ``--pfb 1024 --stokes --nspectra 8`` (2 blocks, the carry across
         them) on the wire file, ``--device-layout --pfb 128`` on the rows
         file;
      b. world size 2 on the one card (``gloo``, both ranks on cuda:0):
@@ -97,8 +98,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      as processes at 8192 x 48: the default 10-mode matrix, ``--single``,
      ``--stokes --scrunch 64``, ``--pfb 128``, ``--pfb 1024 --device-layout
      --stokes --scrunch 8``, ``--pfb 2048`` (the torch.fft route, named in
-     its label), ``--h2d`` and ``--e2e --iters 6``: each line printed, its
-     keys present, its value positive, its card phase 1's; every mode
+     its label), ``--h2d --iters 9`` (cut from 30 for time) and ``--e2e
+     --iters 6``: each line printed, its keys present, its value
+     positive, its card phase 1's; every mode
      launched one wrapper, a CUDA one unless its label names the torch.fft
      route (``--e2e``: ``baseband2power_cuda``); where phase 6 timed the same
      wrapper at the same shape, the mode's ``block_ms`` within 2x of that
@@ -108,7 +110,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
         CUDA wrapper x layout x streaming case) against the float64 numpy
         goldens: every case ok and each launched its wrapper; the worst
         error of each wrapper printed;
-     b. ``parity.run_full`` at 8192 x 48, its 7 direct cases, against the
+     b. ``parity.run_full`` at 2048 x 48, its 7 direct cases, against the
         goldens computed chunk by chunk in a process pool: the same checks;
      c. ``tools/host_runtime.py`` at its defaults (64 MB ring blocks) on
         free UDP ports: ring GB/s, the sender's frames/s alone, capture's
@@ -119,6 +121,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
         x 48 per rank, world sizes 1 (``nccl``) and 2 (``gloo``), each
         point's output equal to the single-device kernel's.
      The launches of 11a-b are counted per wrapper (``launches_parity``).
+ 12. the last four tools:
+     a. ``tools/spectra_bench.py`` at 8192 x 48 in this process: its 25
+        rows (the streaming PFB at nfft 128-1024 and the six composed
+        modes on wire and rows, the coarse rows kernels) each launching
+        its CUDA wrapper (the tool raises otherwise), the torch.fft row,
+        its three reports on the card, each row's bound; then the shapes
+        phases 3-4 leave at this size, nfft 256 and 512 on both layouts
+        with a carry, within 2e-5 of the float64 plain version (the
+        float32 plain version timed beside), and coarse Stokes rows at
+        nout 1024 bit-equal;
+     b. ``probes/streaming.py`` at nfft 128 and 1024 (steps A-E), and E's
+        output equal to D's on the same carry;
+     c. ``tools/soak_matrix.py`` as processes: ``--matrix r04`` and r05's
+        three 8 s runs, each run passing with kernel launches on cuda:0
+        within three runs;
+     d. ``tools/scaling_budget.py`` from phase 10's matrix line and 12a's
+        device-layout report.
+     The launches of 12a-b are counted per wrapper (``launches_tools``).
 The last two lines are the kernels' JSON record and the result line.
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -218,8 +238,10 @@ MULTI_KERNELS = ("baseband2power_cuda", "baseband2power_scrunch_rows_cuda",
 SOAK_RATE = 0.05
 # phase 11b: the direct cases of parity.run_full (its PFB cases' goldens
 # take minutes; ``python -m paf_baseband2power_tpu_torch.parity --full``
-# runs all 15)
+# runs all 15), at 2048 frames x 48 chunks: cut from 8192 (75 s, a
+# quarter of it goldens) to leave phase 12 room in the time limit
 PARITY_DIRECT = r"^(power|stokes|scrunch)"
+PARITY_FULL_NDF = 2048
 # phase 11d: blocks per beam of tools/multibeam at 8192 x 48 (rank 0 holds
 # both beams' in host memory beside the pipeline's four pinned slots)
 MULTIBEAM_BLOCKS = 3
@@ -235,7 +257,7 @@ BENCH_RUNS = [
     (("--pfb", "1024", "--device-layout", "--stokes", "--scrunch", "8"),
      ("pfb_spectra_cuda (nfft 1024 Stokes)", False)),
     (("--pfb", "2048"), (None, False)),     # the torch.fft route
-    (("--h2d",), None),
+    (("--h2d", "--iters", "9"), None),
     (("--e2e", "--iters", "6"), None),
 ]
 # the matrix's 10 rows, in its order, each with its phase 6 reference
@@ -798,6 +820,7 @@ def main() -> int:
     del big, big_rows, prev, prev_rows, carry
 
     # --- 5. main path through the CLI ----------------------------------------
+    log(f"[5] starts at {time.perf_counter() - t_start:.1f} s")
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke-") as tmp:
         # 5a. paf_gen recordings at 1024 x 48 against the golden model
         ndf = 1024
@@ -836,7 +859,7 @@ def main() -> int:
         # recording on disk at a time (8.5 GB). Writing one runs only the
         # plain versions. Each path's counts are set to 0 just before each
         # of its CLI runs and read just after.
-        runs = {"wire": (3, [("power", [], 0),
+        runs = {"wire": (2, [("power", [], 0),
                              ("power", ["--nspectra", "64"], 1),
                              ("stokes", ["--stokes"], 2),
                              ("stokes", ["--stokes", "--nspectra", "64"], 3),
@@ -921,6 +944,7 @@ def main() -> int:
               f"the multi-device path launched {name}")
 
     # --- 6. timing at 8192 x 48 ----------------------------------------------
+    log(f"[6] starts at {time.perf_counter() - t_start:.1f} s")
     gen.manual_seed(7)
     big = torch.randint(-32768, 32768, (FULL_NDF, NCHK * P.LANES_PER_CHUNK),
                         dtype=torch.int16, device=dev, generator=gen)
@@ -1020,15 +1044,18 @@ def main() -> int:
     del big, big_rows
 
     # --- 7. the spectrometer probes (K11-K13) ------------------------------
+    log(f"[7] starts at {time.perf_counter() - t_start:.1f} s")
     kernels += [dict(k, launches_multidevice=0)
                 for k in probe_phase(dev, gen, smi)]
 
     # --- 8c. the soak: live capture -> ring -> CUDA compute ------------------
+    log(f"[8c] starts at {time.perf_counter() - t_start:.1f} s")
     torch.cuda.empty_cache()
     soak_phase(smi)
 
     # --- 10. the bench ------------------------------------------------------
-    bench_launches = bench_phase(phase6, smi)
+    log(f"[10] starts at {time.perf_counter() - t_start:.1f} s")
+    bench_launches, matrix_line = bench_phase(phase6, smi)
 
     # --- 11. the parity sweeps and the measurement tools ---------------------
     t11 = time.perf_counter()
@@ -1036,9 +1063,16 @@ def main() -> int:
     tools_phase(smi)
     log(f"[11] phase 11 took {time.perf_counter() - t11:.1f} s; the script "
         f"{time.perf_counter() - t_start:.1f} s so far")
+
+    # --- 12. the last four tools: spectra, the carry, soaks, the budget ------
+    t12 = time.perf_counter()
+    tools_launches = last_tools_phase(dev, smi, matrix_line)
+    log(f"[12] phase 12 took {time.perf_counter() - t12:.1f} s; the script "
+        f"{time.perf_counter() - t_start:.1f} s so far")
     for k in kernels:
         k["launches_bench"] = bench_launches[k["name"]]
         k["launches_parity"] = parity_launches[k["name"]]
+        k["launches_tools"] = tools_launches[k["name"]]
     check(sorted(k["name"] for k in kernels) == sorted(KERNELS),
           "one record per wrapper")
     loaded = sorted(m for m in sys.modules
@@ -1304,7 +1338,7 @@ def soak_phase(smi: str) -> list[dict]:
     runs as the JAX package's soak tests allow (capture's fall-behind quit
     is itself probabilistic on a shared host). Returns the reports."""
     full = ["--nchk", str(NCHK), "--nports", "6", "--ndf", "1024",
-            "--nblk", "8", "--device-layout", "--seconds", "10",
+            "--nblk", "8", "--device-layout", "--seconds", "5",
             "--rate", str(SOAK_RATE)]
     reports = []
     for name, args in (("power", full),
@@ -1342,12 +1376,13 @@ def soak_phase(smi: str) -> list[dict]:
     return reports
 
 
-def bench_phase(phase6: dict, smi: str) -> collections.Counter:
+def bench_phase(phase6: dict, smi: str) -> tuple[collections.Counter, str]:
     """Phase 10: each of ``BENCH_RUNS`` as a process, its JSON line printed
     and checked (keys, value, card, the one wrapper each mode launched, its
-    time against phase 6's); returns the launches of all runs by
-    wrapper."""
+    time against phase 6's); returns the launches of all runs by wrapper
+    and the matrix's line."""
     launched = collections.Counter()
+    matrix_line = None
     for argv, ref in BENCH_RUNS:
         what = " ".join(argv) or "(the matrix)"
         if "--e2e" in argv:
@@ -1384,6 +1419,7 @@ def bench_phase(phase6: dict, smi: str) -> collections.Counter:
             launched.update(line["wrappers"])
             continue
         if kind == "matrix":
+            matrix_line = out[0]
             rows = line["matrix"]
             check([row["mode"] for row in rows] == list(BENCH_MATRIX),
                   f"bench matrix modes {[row['mode'] for row in rows]}")
@@ -1420,7 +1456,7 @@ def bench_phase(phase6: dict, smi: str) -> collections.Counter:
                 check(0.5 <= ratio <= 2.0,
                       f"bench {mode} within 2x of phase 6's {ref}: "
                       f"{ratio:.3f}x")
-    return launched
+    return launched, matrix_line
 
 
 def parity_phase(dev: torch.device, smi: str) -> collections.Counter:
@@ -1435,9 +1471,10 @@ def parity_phase(dev: torch.device, smi: str) -> collections.Counter:
             ("11a", "run_sweep 4096 x 2, nout 64", 75,
              lambda: parity.run_sweep(4096, 2, os.path.join(tmp, "s.json"),
                                       64, dev)),
-            ("11b", f"run_full {FULL_NDF} x {NCHK}, direct cases", 7,
-             lambda: parity.run_full(os.path.join(tmp, "f.json"),
-                                     FULL_NDF, NCHK, dev, PARITY_DIRECT)),
+            ("11b", f"run_full {PARITY_FULL_NDF} x {NCHK}, direct cases",
+             7, lambda: parity.run_full(os.path.join(tmp, "f.json"),
+                                        PARITY_FULL_NDF, NCHK, dev,
+                                        PARITY_DIRECT)),
         ]
         for tag, what, ncases, run in runs:
             CP.launches.clear()
@@ -1532,6 +1569,201 @@ def tools_phase(smi: str) -> None:
             f"{sc['ndf_per_device']} frames x {NCHK} per rank ({wall:.1f} s "
             f"wall), outputs equal to the single-device kernel's: "
             f"{json.dumps(sc['points'])} on {smi}")
+
+
+def last_tools_phase(dev: torch.device, smi: str,
+                     matrix_line: str) -> collections.Counter:
+    """Phase 12: ``tools/spectra_bench`` and ``probes/streaming`` in this
+    process (their launches counted; each new shape held against the
+    float64 plain version), ``tools/soak_matrix`` and
+    ``tools/scaling_budget`` as processes; returns 12a-b's launches by
+    wrapper."""
+    from paf_baseband2power_tpu_torch.ops import cuda_pfb as CF
+    from paf_baseband2power_tpu_torch.ops import cuda_power as CP
+    from paf_baseband2power_tpu_torch.ops import pfb as PF
+    from paf_baseband2power_tpu_torch.ops import power as P
+    from paf_baseband2power_tpu_torch.probes import streaming as ST
+    from paf_baseband2power_tpu_torch.probes._common import (
+        make_block_2d, make_block_rows, peak_err)
+    from paf_baseband2power_tpu_torch.tools import spectra_bench as SB
+
+    launched = collections.Counter()
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke-") as tmp:
+        # 12a. spectra_bench at 8192 x 48, every row on its CUDA wrapper
+        # (the tool raises for a row whose wrapper launched nothing)
+        CP.launches.clear()
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.chdir(tmp), contextlib.redirect_stdout(buf):
+            rc = SB.main([])
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"spectra_bench exit code {rc}")
+        launched.update(CP.launches)
+        lines = buf.getvalue().strip().splitlines()
+        for line in lines:
+            log(f"[12a] {line}")
+        reports = {}
+        for stem in ("PFB", "COMPOSE", "DEVICE_LAYOUT"):
+            with open(os.path.join(tmp, f"{stem}_cuda.json")) as f:
+                reports[stem] = json.load(f)
+            check(reports[stem]["device"]["nvidia_smi"] == smi,
+                  f"spectra_bench {stem} ran on {reports[stem]['device']}")
+        pfb = reports["PFB"]["measurements"]
+        comp = reports["COMPOSE"]["measurements"]
+        kernel_rows = [r for r in pfb if r["method"] == SB.KERNEL_METHOD]
+        check(len(kernel_rows) == 8 and len(comp) == 17
+              and all(r["block_ms"] > 0 for r in kernel_rows + comp),
+              f"spectra_bench: 25 rows ({len(kernel_rows)} + {len(comp)})")
+        for name in ("pfb_spectra_cuda", "baseband2power_scrunch_rows_cuda",
+                     "baseband2stokes_scrunch_rows_cuda"):
+            check(CP.launches[name] > 0, f"spectra_bench launched {name}")
+        log(f"[12a] spectra_bench 8192 x 48: 25 rows, {len(pfb) - 8} "
+            f"torch.fft row, launches {dict(CP.launches)}, {wall:.1f} s "
+            f"wall on {smi}")
+        # each row's least time on the card (phase 6's rule)
+        n16 = FULL_NDF * NCHK * 3584
+        nchan = NCHK * 7
+        for r in pfb + comp:
+            nout, ns = r.get("nout", 1), 4 if r.get("stokes") else 1
+            fine = r["nfft"] or 1
+            ops = (pfb_ops(n16 // 2, r["nfft"], 4, ns == 4) if r["nfft"]
+                   else n16 * (4 if ns == 4 else 2))
+            bound_ms, bound_by = bound(n16 * 2 + nout * ns * nchan * fine * 4,
+                                       ops)
+            what = r.get("mode", r.get("method", ""))[:40]
+            log(f"[12a] {r['layout']} nfft {r['nfft']} nout {nout} "
+                f"{'Stokes' if ns == 4 else 'power'} ({what}): "
+                f"{r['block_ms']:.4f} ms/block, bound {bound_ms:.4f} ms "
+                f"({bound_by}) on {smi}")
+        # the shapes phases 3-4 do not check at this size: nfft 256 and
+        # 512 on both layouts with a carry, and coarse Stokes at nout 1024
+        # (8 frames a window), against the plain versions
+        for layout, make in (("wire", make_block_2d),
+                             ("rows", make_block_rows)):
+            block = make(FULL_NDF, dev, seed=0 if layout == "wire" else 1)
+            for nfft in (256, 512):
+                h = PF.pfb_history(block, nfft, 4, layout)
+                got = CF.pfb_spectra_cuda(block, nfft, 4, history=h,
+                                          layout=layout)
+                want = PF.pfb_spectra(block, nfft, 4, history=h,
+                                      layout=layout, dtype=torch.float64)
+                _, rel = peak_err(got, want)
+                del got, want
+                check(rel < BOUND_PFB, f"PFB {layout} nfft {nfft} against "
+                      f"float64: {rel:.3e}")
+                # the plain version's time (float32), as phase 6 times it
+                plain_ms = cuda_ms(lambda: PF.pfb_spectra(
+                    block, nfft, 4, history=h, layout=layout), 2)
+                log(f"[12a] PFB {FULL_NDF} x {NCHK} {layout} nfft {nfft} "
+                    f"with a carry: {rel:.3e} peak-normalized against "
+                    f"float64; plain float32 {plain_ms:.4f} ms/block on "
+                    f"{smi}")
+            if layout == "rows":
+                check(torch.equal(
+                    CP.baseband2stokes_scrunch_rows_cuda(block, 1024),
+                    P.baseband2stokes_scrunch_rows(block, 1024)),
+                    "coarse Stokes rows at nout 1024")
+                log(f"[12a] Stokes rows {FULL_NDF} x {NCHK} nout 1024: "
+                    "bit-equal to the plain int64 version")
+            del block
+        torch.cuda.empty_cache()
+
+        # 12b. the streaming probe at nfft 128 and 1024; E equals D
+        for nfft in (128, 1024):
+            CP.launches.clear()
+            t0 = time.perf_counter()
+            line = run_main(ST.main, ["--nfft", str(nfft)])
+            launched.update(CP.launches)
+            check(list(line["ms"]) == list(ST.LABELS)
+                  and CP.launches["pfb_spectra_cuda"] > 0,
+                  f"streaming probe {line}, {dict(CP.launches)}")
+            log(f"[12b] probes.streaming: {json.dumps(line)}, launches "
+                f"{dict(CP.launches)}, {time.perf_counter() - t0:.1f} s "
+                f"wall on {smi}")
+            rows = make_block_rows(FULL_NDF, dev, seed=0)
+            steps = ST.make_steps(rows, nfft)
+            steps["E chained streaming"]()
+            e = steps["E chained streaming"]()
+            d, _ = steps["D both (fixed h)"]()
+            check(torch.equal(e, d), f"streaming E equals D at nfft {nfft}")
+            del rows, steps, e, d
+        torch.cuda.empty_cache()
+        log("[12b] E's output equals D's on the same carry at nfft 128 "
+            "and 1024")
+
+        # 12c. the soak matrices: r04, and r05's three 8 s runs (its two
+        # 60 s runs are run by hand); a run that fails is run again, up
+        # to three runs in all, as phase 8c allows
+        soak_tool(tmp, smi, "r04", None)
+        soak_tool(tmp, smi, "r05", r"^(?!.*60 s)")
+
+        # 12d. the scaling budget from phase 10's matrix and 12a's rows
+        matrix = os.path.join(tmp, "matrix.json")
+        with open(matrix, "w") as f:
+            f.write(matrix_line + "\n")
+        r = subprocess.run(
+            [sys.executable, "-m",
+             "paf_baseband2power_tpu_torch.tools.scaling_budget",
+             "--compute-json", matrix, "--spectra-json",
+             os.path.join(tmp, "DEVICE_LAYOUT_cuda.json")], env=stage_env(),
+            capture_output=True, text=True, timeout=120, cwd=tmp)
+        check(r.returncode == 0, f"scaling_budget exit code "
+              f"{r.returncode}: {r.stderr[-3000:]}")
+        with open(os.path.join(tmp, "scaling_budget_cuda.json")) as f:
+            budget = json.load(f)
+        check(len(budget["compute_ms"]) == 6
+              and all(v > 0 for v in budget["compute_ms"].values())
+              and budget["device"]["nvidia_smi"] == smi,
+              f"scaling_budget report {budget['compute_ms']}")
+        log(f"[12d] scaling_budget from this run's times on {smi}: "
+            f"{json.dumps(budget['compute_ms'])}")
+        for line in r.stdout.strip().splitlines():
+            log(f"[12d] {line}")
+    return launched
+
+
+def soak_tool(tmp: str, smi: str, matrix: str, only: str | None) -> None:
+    """Phase 12c: ``tools/soak_matrix --matrix MATRIX`` as a process; the
+    runs that fail are run again (by label), up to three runs each; every
+    run's report must pass with kernel launches on cuda:0."""
+    import re
+
+    passed = {}
+    for attempt in range(3):
+        argv = ["--matrix", matrix]
+        if only:
+            argv += ["--only", only]
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m",
+             "paf_baseband2power_tpu_torch.tools.soak_matrix", *argv],
+            env=stage_env(), capture_output=True, text=True, timeout=1800,
+            cwd=tmp)
+        wall = time.perf_counter() - t0
+        with open(os.path.join(tmp, "soak_matrix_cuda.json")) as f:
+            report = json.load(f)
+        for run in report[matrix]["runs"]:
+            ok = (run.get("pass") is True
+                  and run.get("kernel_launches", 0) > 0
+                  and run.get("backend") == "cuda:0")
+            log(f"[12c] soak {matrix}, run {attempt + 1}: {run['label']}: "
+                f"{'pass' if ok else 'FAIL'}, loss {run.get('loss')}, "
+                f"blocks {run.get('blocks_computed')} of "
+                f"{run.get('expected_blocks')}, launches "
+                f"{run.get('kernel_launches')}, {run.get('wall_sec', 0):.1f} "
+                f"s wall ({run.get('mode')}) on {smi}")
+            if ok:
+                passed[run["label"]] = run
+        failed = [run["label"] for run in report[matrix]["runs"]
+                  if run["label"] not in passed]
+        log(f"[12c] soak_matrix {' '.join(argv)}: exit {r.returncode}, "
+            f"{wall:.1f} s wall; "
+            f"{(r.stdout.strip().splitlines() or [''])[-1]}")
+        if not failed:
+            break
+        only = "^(" + "|".join(re.escape(x) for x in failed) + ")$"
+    check(not failed, f"soak {matrix} runs pass with kernel launches on "
+          f"cuda:0 within 3 runs: {failed}: {r.stderr[-3000:]}")
 
 
 def free_udp_base(offsets: tuple[int, ...], lo: int = 28300) -> int:

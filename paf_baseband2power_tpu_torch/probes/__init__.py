@@ -7,5 +7,10 @@ probe is a hand-written CUDA kernel beside its plain PyTorch version, and a
     python -m paf_baseband2power_tpu_torch.probes.wide_reshape [--nfft 1024]
     python -m paf_baseband2power_tpu_torch.probes.karatsuba [--check]
 
-Both run on the card unless given ``--platform cpu``.
+``streaming`` times the production spectrometer's overlap-save carry in
+five steps (A-E):
+
+    python -m paf_baseband2power_tpu_torch.probes.streaming [--nfft 1024]
+
+Each runs on the card unless given ``--platform cpu``.
 """

@@ -106,9 +106,12 @@ def bench_capture(seconds: float = 2.0, nchk: int = 8, nports: int = 2,
               nchk=nchk, freq_base=1000.0, chunk_bw=7.0, epoch=51, sec0=27)
     stop = threading.Event()
 
+    # every probe frame has idf 0, before the reference frame the probe
+    # sets: frames still queued when capture starts are dropped as late,
+    # never counted as received beside the flood's
     def feed():
         while not stop.is_set():
-            stream_frames(**kw, idf0=0, nframes=nchk * 2, pace_sec=0.0005)
+            stream_frames(**kw, idf0=0, nframes=1, pace_sec=0.0005)
 
     t = threading.Thread(target=feed)
     t.start()

@@ -56,8 +56,14 @@ def expected_payload(k, ichk):
 
 def free_ports(n=NPORTS, lo=33100, hi=33900):
     """A base port with ``n`` consecutive free UDP ports (a range no other
-    test file probes)."""
-    for base in range(lo, hi, 10):
+    test file probes). The search starts in a slice of the range of this
+    xdist worker's own, so that two workers never probe the same base
+    while one of them has yet to bind it (an engine, or the CLI's
+    process, binds only after the probe's sockets are closed)."""
+    bases = range(lo, hi, 10)
+    slot = int(os.environ.get("PYTEST_XDIST_WORKER", "gw0")[2:] or 0)
+    first = (slot % 8) * (len(bases) // 8)
+    for base in (bases[(first + i) % len(bases)] for i in range(len(bases))):
         socks = []
         try:
             for i in range(n):

@@ -32,10 +32,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def free_udp_ports(n: int, lo: int = 36000, hi: int = 36999) -> int:
     """The first of ``n`` consecutive free UDP ports in ``[lo, hi]``, the
-    search started at an offset of this process's."""
+    search started in a slice of the range of this xdist worker's own, so
+    that two workers never probe the same base while one of them has yet
+    to bind it."""
     span = (hi - lo) // 10
+    slot = int(os.environ.get("PYTEST_XDIST_WORKER", "gw0")[2:] or 0)
     for i in range(span):
-        base = lo + 10 * ((os.getpid() + i) % span)
+        base = lo + 10 * (((slot % 8) * (span // 8) + i) % span)
         socks = []
         try:
             for p in range(n):
