@@ -217,6 +217,8 @@ def main(argv=None) -> int:
             "samples_per_sec": stats.samples_per_sec,
             "realtime_x": stats.realtime_fraction,
             "kernel_launches": stats.kernel_launches,
+            "slot_waits": stats.slot_waits,
+            "record_waits": stats.record_waits,
             "device": str(device),
         }))
     return 0

@@ -76,7 +76,6 @@ def run_multibeam(sources, mesh, sinks, mean: bool = False,
                     sink.write(out[b].numpy())
             stats.nblocks += 1
             stats.nbytes_in += stacked.nbytes * nbeam
-            stats.nbytes_out += out.numel() * 4 if rank0 else 0
         stats.elapsed = time.perf_counter() - t0
     finally:
         for sink in sinks:

@@ -185,8 +185,6 @@ class MultihostRunner:
                         sink.write(rows[b].numpy())
                 stats.nblocks += 1
                 stats.nbytes_in += local.nbytes * dist.get_world_size()
-                if rank0:
-                    stats.nbytes_out += rows.numel() * 4
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             stats.elapsed = time.perf_counter() - t0

@@ -18,6 +18,13 @@ so no block is overwritten while still in flight. The PFB carry is a tensor
 of its own (``ops/pfb.py:pfb_history``), never a view of a slot, so the
 next block's kernel reads it whatever ``depth`` is. On the CPU the same
 loop runs the plain PyTorch version with no copies.
+
+While a torch profiler records, each block's steps are spans
+(``runtime/trace.py``), flat and in the loop's order: ``pafb2p.source``,
+``stage.wait`` (only when the slot's H2D has not finished), ``stage.copy``,
+``stage.h2d``, ``step``, ``fetch``, ``drain.wait`` (only when the record
+has not arrived) and ``sink``. ``PipelineStats.slot_waits`` and
+``record_waits`` count the two waits whether or not a profiler records.
 """
 
 from __future__ import annotations
@@ -38,16 +45,18 @@ from ..ops import pfb as PF
 from ..ops.frame import synthetic_block
 from . import debug
 from .log import open_log
+from .trace import span
 
 
 @dataclasses.dataclass
 class PipelineStats:
     nblocks: int = 0
     nbytes_in: int = 0
-    nbytes_out: int = 0
     ndf: int = 0                     # frames per block (from the stream)
     elapsed: float = 0.0
     kernel_launches: int = 0         # kernel launches during the run
+    slot_waits: int = 0              # a pinned slot's H2D not yet done
+    record_waits: int = 0            # a block's record not yet on the host
     block_seconds: list = dataclasses.field(default_factory=list)
 
     @property
@@ -143,10 +152,13 @@ class MemorySink:
 
 class _Staging:
     """``depth`` host slots (pinned for a CUDA device) and device slots,
-    with the events that say when each may be reused."""
+    with the events that say when each may be reused; each wait for a
+    slot's H2D counts in ``stats.slot_waits``."""
 
-    def __init__(self, shape: tuple, device: torch.device, depth: int):
+    def __init__(self, shape: tuple, device: torch.device, depth: int,
+                 stats: PipelineStats):
         self.shape = tuple(shape)
+        self.stats = stats
         self.device = device
         self.cuda = device.type == "cuda"
         self.host = [torch.empty(self.shape, dtype=torch.int16,
@@ -166,29 +178,35 @@ class _Staging:
                              f"{self.shape} mid-stream")
         k = self._next
         self._next = (k + 1) % len(self.host)
-        if self.copied[k] is not None:
-            self.copied[k].synchronize()
-        np.copyto(self.host[k].numpy(), block)
-        if not self.cuda:
-            return self.host[k], k
-        with torch.cuda.stream(self.stream):
-            if self.read[k] is not None:
-                self.stream.wait_event(self.read[k])
-            self.dev[k].copy_(self.host[k], non_blocking=True)
-            self.copied[k] = torch.cuda.Event()
-            self.copied[k].record(self.stream)
-        torch.cuda.current_stream(self.device).wait_event(self.copied[k])
+        copied = self.copied[k]
+        if copied is not None and not copied.query():
+            self.stats.slot_waits += 1
+            with span("stage.wait"):
+                copied.synchronize()
+        with span("stage.copy"):
+            np.copyto(self.host[k].numpy(), block)
+        with span("stage.h2d"):
+            if not self.cuda:
+                return self.host[k], k
+            with torch.cuda.stream(self.stream):
+                if self.read[k] is not None:
+                    self.stream.wait_event(self.read[k])
+                self.dev[k].copy_(self.host[k], non_blocking=True)
+                self.copied[k] = torch.cuda.Event()
+                self.copied[k].record(self.stream)
+            torch.cuda.current_stream(self.device).wait_event(self.copied[k])
         return self.dev[k], k
 
     def fetch(self, out: torch.Tensor, k: int):
         """Queue the D2H copy of slot ``k``'s output; returns the host
         tensor and the event that marks it (and the slot's read) done."""
-        if not self.cuda:
-            return out, None
-        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        host.copy_(out, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(self.device))
+        with span("fetch"):
+            if not self.cuda:
+                return out, None
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            host.copy_(out, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
         self.read[k] = done
         return host, done
 
@@ -260,23 +278,25 @@ class PowerPipeline:
         ``nchan`` counts fine channels, Stokes keeps its ``nout`` axis
         (``(1, 4, nchan)`` at ``nout = 1``, as in the JAX package), and
         each call continues the stream from the previous block's carry."""
-        nout, mean, stokes = self._nout, self._mean, self._stokes
-        if self._pfb is not None:
-            out, self._carry = self._pfb(x, self._carry)
-            return out
-        if self._power_fn is not None:
-            return self._power_fn(x)
-        if self._device_layout:
-            fn = (CP.baseband2stokes_scrunch_rows_cuda if stokes
-                  else CP.baseband2power_scrunch_rows_cuda)
-            out = fn(x, nout, mean=mean)
-            return out[0] if nout == 1 else out
-        if nout == 1:
-            fn = CP.baseband2stokes_cuda if stokes else CP.baseband2power_cuda
-            return fn(x, mean=mean)
-        fn = (CP.baseband2stokes_scrunch_cuda if stokes
-              else CP.baseband2power_scrunch_cuda)
-        return fn(x, nout, mean=mean)
+        with span("step"):
+            nout, mean, stokes = self._nout, self._mean, self._stokes
+            if self._pfb is not None:
+                out, self._carry = self._pfb(x, self._carry)
+                return out
+            if self._power_fn is not None:
+                return self._power_fn(x)
+            if self._device_layout:
+                fn = (CP.baseband2stokes_scrunch_rows_cuda if stokes
+                      else CP.baseband2power_scrunch_rows_cuda)
+                out = fn(x, nout, mean=mean)
+                return out[0] if nout == 1 else out
+            if nout == 1:
+                fn = (CP.baseband2stokes_cuda if stokes
+                      else CP.baseband2power_cuda)
+                return fn(x, mean=mean)
+            fn = (CP.baseband2stokes_scrunch_cuda if stokes
+                  else CP.baseband2power_scrunch_cuda)
+            return fn(x, nout, mean=mean)
 
     def warmup(self, ndf: int, nchk: int = C.NCHK_NIC) -> float:
         """Build and load the kernels and launch them once on zeros made on
@@ -324,23 +344,30 @@ class PowerPipeline:
         def drain_one():
             nonlocal t_block
             host, ready = inflight.popleft()
-            if ready is not None:
-                ready.synchronize()
+            if ready is not None and not ready.query():
+                stats.record_waits += 1
+                with span("drain.wait"):
+                    ready.synchronize()
             row = host.numpy()
             if debug.debug_enabled():
                 # Q, U and V are legitimately negative
                 debug.check_power(row, stats.nblocks, signed=self._stokes)
                 self.log.info("block %d ok: sum=%.6g max=%.6g",
                               stats.nblocks, row.sum(), row.max())
-            sink.write(row)
+            with span("sink"):
+                sink.write(row)
             now = time.perf_counter()
             stats.block_seconds.append(now - t_block)
-            stats.nbytes_out += row.size * 4
             stats.nblocks += 1
             t_block = now
 
         try:
-            for block in source:
+            blocks = iter(source)
+            while True:
+                with span("source"):
+                    block = next(blocks, None)
+                if block is None:
+                    break
                 if self._device_layout and block.ndim == 2:
                     # rows blocks go H2D 3-D (nseries, ndf, 256)
                     block = block.reshape(block.shape[0], -1, 2 * C.NSAMP_DF)
@@ -348,7 +375,8 @@ class PowerPipeline:
                     stats.ndf = (block.shape[1] if self._device_layout
                                  else block.shape[0])
                 if staging is None:
-                    staging = _Staging(block.shape, self.device, self._depth)
+                    staging = _Staging(block.shape, self.device, self._depth,
+                                       stats)
                 x, slot = staging.put(block)
                 inflight.append(staging.fetch(self.power(x), slot))
                 stats.nbytes_in += block.nbytes
@@ -362,7 +390,8 @@ class PowerPipeline:
         stats.kernel_launches = sum(CP.launches.values()) - launches0
         self.log.info(
             "pipeline done: %d blocks, %.3f s, %.3g samp/s, %.2fx real time, "
-            "%d kernel launches", stats.nblocks, stats.elapsed,
-            stats.samples_per_sec, stats.realtime_fraction,
-            stats.kernel_launches)
+            "%d kernel launches, %d slot waits, %d record waits",
+            stats.nblocks, stats.elapsed, stats.samples_per_sec,
+            stats.realtime_fraction, stats.kernel_launches,
+            stats.slot_waits, stats.record_waits)
         return stats

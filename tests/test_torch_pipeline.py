@@ -123,7 +123,7 @@ def test_pipeline_depths_and_stats(depth):
     assert stats.nblocks == len(sink.records) == 4
     assert stats.ndf == NDF
     assert stats.nbytes_in == 4 * NDF * 4 * C.DT_SIZE
-    assert stats.nbytes_out == 4 * 4 * C.NCHAN_CHK * 4
+    assert sum(r.size for r in sink.records) * 4 == 4 * 4 * C.NCHAN_CHK * 4
     assert len(stats.block_seconds) == 4 and stats.elapsed > 0
     assert stats.kernel_launches == 0          # the CPU runs no kernel
     assert stats.realtime_fraction > 0 and stats.samples_per_sec > 0
@@ -159,7 +159,8 @@ def test_pipeline_copies_read_only_blocks():
 
 
 def test_staging_rejects_shape_change():
-    staging = RP._Staging((4, 8), torch.device("cpu"), 2)
+    staging = RP._Staging((4, 8), torch.device("cpu"), 2,
+                          RP.PipelineStats())
     staging.put(np.zeros((4, 8), np.int16))
     with pytest.raises(ValueError, match="changed"):
         staging.put(np.zeros((4, 16), np.int16))
@@ -200,7 +201,8 @@ def test_pipeline_stokes_bit_equal_golden(layout, nout, monkeypatch):
     stats = RP.PowerPipeline("cpu", nout=nout, stokes=True,
                              device_layout=layout == "rows").run(src, sink)
     assert stats.nblocks == 2
-    assert stats.nbytes_out == 2 * nout * 4 * 4 * C.NCHAN_CHK * 4
+    assert (sum(r.size for r in sink.records) * 4
+            == 2 * nout * 4 * 4 * C.NCHAN_CHK * 4)
     for b, rec in zip(blocks, sink.records):
         want = baseband2stokes_scrunch_golden(b, nout)
         assert (want[:, 1:] < 0).any()
@@ -285,6 +287,8 @@ def test_cli_stats_mean_header_log_profile(tmp_path, capsys, monkeypatch):
     stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert stats["nblocks"] == 2 and stats["kernel_launches"] == 0
     assert stats["device"] == "cpu" and stats["samples_per_sec"] > 0
+    # no event on the CPU, so nothing waits
+    assert stats["slot_waits"] == 0 and stats["record_waits"] == 0
     hdr, recs = _records(pw, nout=2, nchk=4)
     assert hdr["UTC_START"] == "2026-01-01-00:00:00"
     assert hdr.get_int("NCHAN") == 4 * C.NCHAN_CHK
@@ -293,7 +297,8 @@ def test_cli_stats_mean_header_log_profile(tmp_path, capsys, monkeypatch):
         np.testing.assert_array_equal(rec, _golden(4 + i, 2, mean=True,
                                                    nchk=4))
     assert (tmp_path / "logs" / "baseband2power.log").exists()
-    assert (tmp_path / "prof" / "trace.json").exists()
+    trace = (tmp_path / "prof" / "trace.json").read_text()
+    assert '"pafb2p.step"' in trace and '"pafb2p.sink"' in trace
 
 
 def test_file_source_layouts(tmp_path):
@@ -396,7 +401,8 @@ def test_pipeline_pfb_carry_across_blocks(layout, depth):
     pipe.warmup(NDF, 4)
     stats = pipe.run(src, sink)
     assert stats.nblocks == 3
-    assert stats.nbytes_out == 3 * 4 * C.NCHAN_CHK * 128 * 4
+    assert (sum(r.size for r in sink.records) * 4
+            == 3 * 4 * C.NCHAN_CHK * 128 * 4)
     want = pfb_spectra_golden(np.concatenate(blocks), 128, 4, nout=3)
     for rec, w in zip(sink.records, want):
         assert rec.shape == (4 * C.NCHAN_CHK * 128,)
