@@ -219,6 +219,7 @@ def main(argv=None) -> int:
             "kernel_launches": stats.kernel_launches,
             "slot_waits": stats.slot_waits,
             "record_waits": stats.record_waits,
+            "direct_h2d": stats.direct_h2d,
             "device": str(device),
         }))
     return 0

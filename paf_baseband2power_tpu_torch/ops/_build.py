@@ -205,6 +205,8 @@ _SIGNATURES = {
     "pafb2p_probe_planes": "p l i l i i i p p p",
     "pafb2p_probe_karatsuba": "p l l i i p p p p p p",
     "pafb2p_probe_tile_sum": "p p l l l p",
+    "pafb2p_host_register": "p l",
+    "pafb2p_host_unregister": "p",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_int64,
            "d": ctypes.c_double}

@@ -14,17 +14,28 @@ whose overlap-save carry stays on the device from one block to the next:
 are ``depth`` pinned host slots and ``depth`` device slots. A pinned slot
 is refilled only after the event of its last H2D copy has completed, and a
 device slot is overwritten only after the event of the kernel that read it,
-so no block is overwritten while still in flight. The PFB carry is a tensor
-of its own (``ops/pfb.py:pfb_history``), never a view of a slot, so the
-next block's kernel reads it whatever ``depth`` is. On the CPU the same
-loop runs the plain PyTorch version with no copies.
+so no block is overwritten while still in flight. On a CUDA device a block
+whose host memory recurs (a pool of host blocks that the caller hands in
+again: ``host_register.py``) goes H2D straight from that memory, once
+registered, instead of through a pinned slot; the source is then asked for
+its next block only after that H2D has finished, so a source may reuse its
+memory then, as after a copy. The PFB carry is a tensor of its own
+(``ops/pfb.py:pfb_history``), never a view of a slot, so the next block's
+kernel reads it whatever ``depth`` is. On the CPU the same loop runs the
+plain PyTorch version with no copies.
 
 While a torch profiler records, each block's steps are spans
 (``runtime/trace.py``), flat and in the loop's order: ``pafb2p.source``,
-``stage.wait`` (only when the slot's H2D has not finished), ``stage.copy``,
+``stage.wait`` (only when the slot's H2D has not finished), ``stage.copy``
+(not for a block read in place; ``stage.register`` where it is registered),
 ``stage.h2d``, ``step``, ``fetch``, ``drain.wait`` (only when the record
-has not arrived) and ``sink``. ``PipelineStats.slot_waits`` and
-``record_waits`` count the two waits whether or not a profiler records.
+has not arrived), ``sink``, and ``stage.wait`` again before the next
+``source`` while an H2D from the source's memory has not finished.
+``PipelineStats.slot_waits`` and ``record_waits`` count the waits, and
+``direct_h2d`` the blocks read in place, whether or not a profiler records.
+Both waits in ``slot_waits`` are a beam held by its own H2D. Where blocks
+go in place and the link is the slower step, the wait before ``source``
+comes about once a block, so ``slot_waits`` then nears ``direct_h2d``.
 """
 
 from __future__ import annotations
@@ -44,6 +55,7 @@ from ..ops import cuda_power as CP
 from ..ops import pfb as PF
 from ..ops.frame import synthetic_block
 from . import debug
+from .host_register import HOST_REGISTRY
 from .log import open_log
 from .trace import span
 
@@ -55,8 +67,9 @@ class PipelineStats:
     ndf: int = 0                     # frames per block (from the stream)
     elapsed: float = 0.0
     kernel_launches: int = 0         # kernel launches during the run
-    slot_waits: int = 0              # a pinned slot's H2D not yet done
+    slot_waits: int = 0              # an H2D from a slot or the source not done
     record_waits: int = 0            # a block's record not yet on the host
+    direct_h2d: int = 0              # blocks H2D straight from the source
     block_seconds: list = dataclasses.field(default_factory=list)
 
     @property
@@ -153,7 +166,8 @@ class MemorySink:
 class _Staging:
     """``depth`` host slots (pinned for a CUDA device) and device slots,
     with the events that say when each may be reused; each wait for a
-    slot's H2D counts in ``stats.slot_waits``."""
+    slot's H2D counts in ``stats.slot_waits``. On a CUDA device a block
+    that ``HOST_REGISTRY`` holds page-locked skips the host slot."""
 
     def __init__(self, shape: tuple, device: torch.device, depth: int,
                  stats: PipelineStats):
@@ -168,6 +182,7 @@ class _Staging:
         self.copied: list = [None] * depth   # H2D of the slot finished
         self.read: list = [None] * depth     # kernel reading the slot finished
         self.stream = torch.cuda.Stream(device) if self.cuda else None
+        self.direct = None    # H2D of the last block read in place finished
         self._next = 0
 
     def put(self, block: np.ndarray) -> tuple[torch.Tensor, int]:
@@ -178,24 +193,41 @@ class _Staging:
                              f"{self.shape} mid-stream")
         k = self._next
         self._next = (k + 1) % len(self.host)
-        copied = self.copied[k]
-        if copied is not None and not copied.query():
-            self.stats.slot_waits += 1
-            with span("stage.wait"):
-                copied.synchronize()
-        with span("stage.copy"):
-            np.copyto(self.host[k].numpy(), block)
+        src = HOST_REGISTRY.take(block) if self.cuda else None
+        if src is None:
+            copied = self.copied[k]
+            if copied is not None and not copied.query():
+                self.stats.slot_waits += 1
+                with span("stage.wait"):
+                    copied.synchronize()
+            with span("stage.copy"):
+                np.copyto(self.host[k].numpy(), block)
         with span("stage.h2d"):
             if not self.cuda:
                 return self.host[k], k
             with torch.cuda.stream(self.stream):
                 if self.read[k] is not None:
                     self.stream.wait_event(self.read[k])
-                self.dev[k].copy_(self.host[k], non_blocking=True)
-                self.copied[k] = torch.cuda.Event()
-                self.copied[k].record(self.stream)
-            torch.cuda.current_stream(self.device).wait_event(self.copied[k])
+                self.dev[k].copy_(self.host[k] if src is None else src,
+                                  non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(self.stream)
+            torch.cuda.current_stream(self.device).wait_event(done)
+        if src is None:
+            self.copied[k] = done
+        else:
+            self.direct = done
+            self.stats.direct_h2d += 1
         return self.dev[k], k
+
+    def wait_direct(self) -> None:
+        """Wait for the H2D of the last block read in place, if it has not
+        finished, so that the source may reuse that memory; a slot wait."""
+        done, self.direct = self.direct, None
+        if done is not None and not done.query():
+            self.stats.slot_waits += 1
+            with span("stage.wait"):
+                done.synchronize()
 
     def fetch(self, out: torch.Tensor, k: int):
         """Queue the D2H copy of slot ``k``'s output; returns the host
@@ -364,6 +396,8 @@ class PowerPipeline:
         try:
             blocks = iter(source)
             while True:
+                if staging is not None:
+                    staging.wait_direct()
                 with span("source"):
                     block = next(blocks, None)
                 if block is None:
@@ -386,12 +420,19 @@ class PowerPipeline:
                 drain_one()
             stats.elapsed = time.perf_counter() - t_start
         finally:
-            sink.close()
+            try:
+                if staging is not None:
+                    # a run that raised: no H2D reads the source's memory
+                    # once the run has returned
+                    staging.wait_direct()
+            finally:
+                sink.close()
         stats.kernel_launches = sum(CP.launches.values()) - launches0
         self.log.info(
             "pipeline done: %d blocks, %.3f s, %.3g samp/s, %.2fx real time, "
-            "%d kernel launches, %d slot waits, %d record waits",
-            stats.nblocks, stats.elapsed, stats.samples_per_sec,
-            stats.realtime_fraction, stats.kernel_launches,
-            stats.slot_waits, stats.record_waits)
+            "%d kernel launches, %d slot waits, %d record waits, "
+            "%d direct H2D", stats.nblocks, stats.elapsed,
+            stats.samples_per_sec, stats.realtime_fraction,
+            stats.kernel_launches, stats.slot_waits, stats.record_waits,
+            stats.direct_h2d)
         return stats

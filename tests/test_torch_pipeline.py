@@ -289,6 +289,7 @@ def test_cli_stats_mean_header_log_profile(tmp_path, capsys, monkeypatch):
     assert stats["device"] == "cpu" and stats["samples_per_sec"] > 0
     # no event on the CPU, so nothing waits
     assert stats["slot_waits"] == 0 and stats["record_waits"] == 0
+    assert stats["direct_h2d"] == 0            # the CPU copies every block
     hdr, recs = _records(pw, nout=2, nchk=4)
     assert hdr["UTC_START"] == "2026-01-01-00:00:00"
     assert hdr.get_int("NCHAN") == 4 * C.NCHAN_CHK

@@ -165,3 +165,22 @@ def test_slot_wait_comes_before_the_slots_copy():
         "stage.wait", "stage.copy", "stage.h2d"]
     assert stats.slot_waits == 1 and staging.copied[0].synced == 1
     assert int(staging.host[0].sum()) == 32
+
+
+def test_wait_for_an_h2d_from_the_source_is_a_slot_wait():
+    """Before the source's next block, an unfinished H2D that read the
+    last block in place is waited for in ``stage.wait`` and counted as a
+    slot wait; a finished one is neither, and each is waited for once."""
+    stats = RP.PipelineStats()
+    staging = RP._Staging((4, 8), torch.device("cpu"), 1, stats)
+    pending, done = _Event(False), _Event(True)
+    prof = _profiler()
+    try:
+        for event in (pending, done, None):
+            staging.direct = event
+            staging.wait_direct()
+    finally:
+        spans = _spans(prof)
+    assert [n[len(RT.PREFIX):] for *_, n in spans] == ["stage.wait"]
+    assert stats.slot_waits == 1 and (pending.synced, done.synced) == (1, 0)
+    assert staging.direct is None
