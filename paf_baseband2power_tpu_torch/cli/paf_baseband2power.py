@@ -217,6 +217,7 @@ def main(argv=None) -> int:
             "samples_per_sec": stats.samples_per_sec,
             "realtime_x": stats.realtime_fraction,
             "kernel_launches": stats.kernel_launches,
+            "partial_bytes": stats.partial_bytes,
             "slot_waits": stats.slot_waits,
             "record_waits": stats.record_waits,
             "direct_h2d": stats.direct_h2d,

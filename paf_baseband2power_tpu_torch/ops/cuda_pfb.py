@@ -7,7 +7,13 @@ power case): one CUDA kernel serves both, for wire and series-row blocks.
 Dispatch is by the input's device and nothing else, as in
 ``ops/cuda_power.py``: a CPU tensor goes to the plain version in
 ``ops/pfb.py``, a CUDA tensor to the kernel, which either launches or
-raises. Launches are counted in ``cuda_power.launches`` by wrapper name.
+raises. Launches are counted in ``cuda_power.launches`` by wrapper name,
+and the float64 partials each call writes in ``partial_bytes``.
+
+While a torch profiler records, ``_launch``'s steps are spans
+(``runtime/trace.py``): ``pafb2p.pfb.carry`` (the previous block's halo
+on the card), ``pafb2p.pfb.kernel`` (``pafb2p_pfb``) and
+``pafb2p.pfb.finish`` (``pafb2p_pfb_finish``).
 
 The kernel takes the shapes ``kernel_takes`` accepts. The executor sends
 every other shape to ``pfb_spectra_torch`` / ``pfb_power_torch``: the plain
@@ -19,10 +25,13 @@ the CUDA wrappers still raise for a shape the kernel does not take.
 
 from __future__ import annotations
 
+import collections
+
 import numpy as np
 import torch
 
 from ..constants import NCHAN_CHK, NPOL_SAMP, NSAMP_DF
+from ..runtime.trace import span
 from . import pfb as PF
 from ._build import load_library
 from .cuda_power import _on_cpu, _raise, launches
@@ -71,12 +80,10 @@ def _check_kernel_shape(nfft: int, ntap: int) -> None:
                          f"{CUDA_MAX_NTAP}: {why}")
 
 
-# per device: (nfft, ntap, window) -> float32 coefficients on the card, and
-# the float64 partials of the last call (reused while their shape holds;
-# every launch is on the device's current stream, so one call's finish
-# has read them before the next call's kernel writes them)
+# (nfft, ntap, window, device) -> float32 coefficients on the card
 _coeffs: dict = {}
-_partials: dict = {}
+# float64 bytes of the partials each wrapper's calls wrote, by wrapper name
+partial_bytes: collections.Counter = collections.Counter()
 
 
 def _device_coeffs(nfft: int, ntap: int, window: str,
@@ -88,21 +95,19 @@ def _device_coeffs(nfft: int, ntap: int, window: str,
     return _coeffs[key]
 
 
-def _device_partials(shape: tuple, device: torch.device) -> torch.Tensor:
-    buf = _partials.get(device)
-    if buf is None or tuple(buf.shape) != shape:
-        buf = torch.empty(shape, dtype=torch.float64, device=device)
-        _partials[device] = buf
-    return buf
-
-
 def _launch(block: torch.Tensor, layout: str, nfft: int, ntap: int,
             window: str, nout: int, stokes: bool, mean: bool, shift: bool,
-            history, lib=None) -> torch.Tensor:
+            history, lib=None) -> tuple[torch.Tensor, int]:
     """Run ``pafb2p_pfb`` and its finish kernel on a CUDA block; returns
-    float32 ``(nout, ns, nchan * nfft)``. ``lib``: another build of
-    ``csrc/pfb.cu`` with the same C interface (``probes/pfb_compare.py``),
-    else the package's."""
+    float32 ``(nout, ns, nchan * nfft)`` and the float64 partials' bytes.
+    ``lib``: another build of ``csrc/pfb.cu`` with the same C interface
+    (``probes/pfb_compare.py``), else the package's.
+
+    The partials are the call's own, from the caching allocator on the
+    current stream, as ``ops/cuda_power.py``'s scratch: two pipelines on
+    two streams of one card (beams sharing it) never write each other's,
+    and on one stream the allocator hands the same block back once the
+    finish that read it is queued."""
     _, ndf, nchk = PF.block_geometry(block, layout)
     _, wpg = PF.spectra_geometry(ndf * NSAMP_DF, nfft, ntap, nout)
     _check_kernel_shape(nfft, ntap)
@@ -113,29 +118,34 @@ def _launch(block: torch.Tensor, layout: str, nfft: int, ntap: int,
          else block.reshape(-1, ndf, 2 * NSAMP_DF))
     if x.data_ptr() % 16:
         raise ValueError("the kernels need 16-byte aligned blocks")
-    hist = PF.block_carry(history, ntap, nfft,
-                          nchk * NCHAN_CHK * NPOL_SAMP, block.device)
+    with span("pfb.carry"):
+        hist = PF.block_carry(history, ntap, nfft,
+                              nchk * NCHAN_CHK * NPOL_SAMP, block.device)
     ts = tile_slots(nfft)
     nsub = -(-wpg // ts)
     ns = 4 if stokes else 1
     nchan = nchk * NCHAN_CHK
     coeffs = _device_coeffs(nfft, ntap, window, block.device)
-    partial = _device_partials((nout * nsub, nchan, ns, nfft), block.device)
+    partial = torch.empty((nout * nsub, nchan, ns, nfft),
+                          dtype=torch.float64, device=block.device)
     out = torch.empty((nout, ns, nchan * nfft), dtype=torch.float32,
                       device=block.device)
     div = (PF.mean_divisors(nout, wpg, ntap, stokes, hist is not None)
            if mean else [0.0])
     stream = torch.cuda.current_stream(block.device).cuda_stream
     with torch.cuda.device(block.device):
-        _raise(lib, lib.pafb2p_pfb(
-            x.data_ptr(), int(layout == "rows"), ndf, nchk, nfft, ntap, nout,
-            int(stokes), coeffs.data_ptr(),
-            hist.data_ptr() if hist is not None else None, ts, nsub,
-            partial.data_ptr(), stream))
-        _raise(lib, lib.pafb2p_pfb_finish(
-            partial.data_ptr(), out.data_ptr(), nchan, nfft, nout, nsub, ns,
-            int(shift), div[0], div[-1] if nout > 1 else 0.0, stream))
-    return out
+        with span("pfb.kernel"):
+            _raise(lib, lib.pafb2p_pfb(
+                x.data_ptr(), int(layout == "rows"), ndf, nchk, nfft, ntap,
+                nout, int(stokes), coeffs.data_ptr(),
+                hist.data_ptr() if hist is not None else None, ts, nsub,
+                partial.data_ptr(), stream))
+        with span("pfb.finish"):
+            _raise(lib, lib.pafb2p_pfb_finish(
+                partial.data_ptr(), out.data_ptr(), nchan, nfft, nout, nsub,
+                ns, int(shift), div[0], div[-1] if nout > 1 else 0.0,
+                stream))
+    return out, partial.numel() * partial.element_size()
 
 
 def pfb_spectra_cuda(block: torch.Tensor, nfft: int, ntap: int = 4,
@@ -153,9 +163,10 @@ def pfb_spectra_cuda(block: torch.Tensor, nfft: int, ntap: int = 4,
                               stokes=stokes, mean=mean, shift=shift,
                               history=history,
                               return_history=return_history, layout=layout)
-    out = _launch(block, layout, nfft, ntap, window, nout, stokes, mean,
-                  shift, history)
+    out, nbytes = _launch(block, layout, nfft, ntap, window, nout, stokes,
+                          mean, shift, history)
     launches["pfb_spectra_cuda"] += 1
+    partial_bytes["pfb_spectra_cuda"] += nbytes
     if not stokes:
         out = out[:, 0]
     if return_history:
@@ -173,9 +184,11 @@ def pfb_power_cuda(block: torch.Tensor, nfft: int, ntap: int = 4,
         return PF.pfb_power(block, nfft, ntap, window=window, mean=mean,
                             shift=shift, history=history,
                             return_history=return_history, layout=layout)
-    out = _launch(block, layout, nfft, ntap, window, 1, False, mean, shift,
-                  history)[0, 0]
+    out, nbytes = _launch(block, layout, nfft, ntap, window, 1, False, mean,
+                          shift, history)
+    out = out[0, 0]
     launches["pfb_power_cuda"] += 1
+    partial_bytes["pfb_power_cuda"] += nbytes
     if return_history:
         return out, PF.pfb_history(block, nfft, ntap, layout)
     return out

@@ -80,7 +80,7 @@ def main(argv=None) -> int:
 
     def run(which, x, nfft, ntap, nout, stokes, carry=None, mean=False):
         return CF._launch(x, "wire", nfft, ntap, "hamming", nout, stokes,
-                          mean, True, carry, lib=libs[which])
+                          mean, True, carry, lib=libs[which])[0]
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.check_ndf)

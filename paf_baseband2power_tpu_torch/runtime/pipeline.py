@@ -67,6 +67,7 @@ class PipelineStats:
     ndf: int = 0                     # frames per block (from the stream)
     elapsed: float = 0.0
     kernel_launches: int = 0         # kernel launches during the run
+    partial_bytes: int = 0           # float64 PFB partials written (bytes)
     slot_waits: int = 0              # an H2D from a slot or the source not done
     record_waits: int = 0            # a block's record not yet on the host
     direct_h2d: int = 0              # blocks H2D straight from the source
@@ -368,6 +369,7 @@ class PowerPipeline:
         staging: _Staging | None = None
         inflight: collections.deque = collections.deque()  # (host, event)
         launches0 = sum(CP.launches.values())
+        partials0 = sum(CPF.partial_bytes.values())
         t_start = t_block = time.perf_counter()
         self.log.info("pipeline start: device=%s depth=%d nout=%d layout=%s "
                       "mode=%s", self.device, self._depth, self._nout,
@@ -428,11 +430,12 @@ class PowerPipeline:
             finally:
                 sink.close()
         stats.kernel_launches = sum(CP.launches.values()) - launches0
+        stats.partial_bytes = sum(CPF.partial_bytes.values()) - partials0
         self.log.info(
             "pipeline done: %d blocks, %.3f s, %.3g samp/s, %.2fx real time, "
-            "%d kernel launches, %d slot waits, %d record waits, "
-            "%d direct H2D", stats.nblocks, stats.elapsed,
+            "%d kernel launches, %d partial bytes, %d slot waits, "
+            "%d record waits, %d direct H2D", stats.nblocks, stats.elapsed,
             stats.samples_per_sec, stats.realtime_fraction,
-            stats.kernel_launches, stats.slot_waits, stats.record_waits,
-            stats.direct_h2d)
+            stats.kernel_launches, stats.partial_bytes, stats.slot_waits,
+            stats.record_waits, stats.direct_h2d)
         return stats
