@@ -218,6 +218,7 @@ def main(argv=None) -> int:
             "realtime_x": stats.realtime_fraction,
             "kernel_launches": stats.kernel_launches,
             "partial_bytes": stats.partial_bytes,
+            "pfb_stage_depths": stats.pfb_stage_depths,
             "slot_waits": stats.slot_waits,
             "record_waits": stats.record_waits,
             "direct_h2d": stats.direct_h2d,

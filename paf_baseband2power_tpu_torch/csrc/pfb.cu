@@ -14,17 +14,26 @@
 // and any nout the golden takes (wpg >= ntap - 1) work.
 //
 // Work: one block of 8 warps per (coarse channel, tile of window end slots).
-// Both pols of the channel go through the block together: a wire load of 8
-// bytes is one (x, y) sample pair; rows read the same sample of series 2 ch
-// and 2 ch + 1. Per step of W = sp / nfft windows, sp = max(4 nfft, 1024)
-// samples per pol, the block
-//   1. loads the step's samples of both pols into a ring in shared memory of
-//      R = ntap - 1 + W rows of nfft pairs, which also holds the ntap - 1
-//      rows before them, so the FIR stencil carries across steps and each
-//      sample is read from device memory once per tile (the wire layout's
-//      56-byte stride between a channel's samples is left to L2: the 7
-//      channels of a chunk are neighbouring blocks and read the same
-//      sectors); then one barrier;
+// Both pols of the channel go through the block together: a wire sample
+// pair is 8 bytes (x, y); rows take the same sample of series 2 ch and
+// 2 ch + 1 (4 bytes each). Per step of W = sp / nfft windows, sp =
+// max(4 nfft, 1024) samples per pol, the block
+//   1. stages a step's samples of both pols into a ring in shared memory of
+//      R = ntap - 1 + D W rows of nfft pairs, D the stages (plan_pfb): the
+//      ntap - 1 rows before a step's first window, so the FIR stencil
+//      carries across steps and each sample is read from device memory
+//      once per tile, and D steps. The wide kernels (nfft >= 256, one or two
+//      blocks an SM) copy with cp.async: with D = 2 the copies of step
+//      st + 1 are issued before step st's FFTs, into the rows step st - 1
+//      read, and waited for (cp.async.wait_group, then one barrier) only
+//      before step st + 1's, so the loads run under the FFTs; the halo and
+//      step 0 are issued before the twiddles are computed. With D = 1 a
+//      step's copies are waited for before its FFTs. At nfft <= 128 four or
+//      five blocks an SM hide the loads' latency: D = 1, and the samples
+//      are loaded through registers before one barrier. (The wire layout's
+//      56-byte stride between a channel's samples gives TMA no box and is
+//      left to L2: the 7 channels of a chunk are neighbouring blocks and
+//      read the same sectors.)
 //   2. runs 2 W FFTs, one per (window, pol), each in the registers of one
 //      warp (of P = min(nfft, 32) lanes of one; nfft < 32 puts 32 / nfft
 //      FFTs side by side in a warp), with no barrier: lane p forms the FIR
@@ -53,16 +62,19 @@
 // ring and coefficient reads from shared memory per point, one write and
 // one read of each spectrum, 2 log2(P) lane shuffles per point and two
 // barriers per step; the first version of this kernel, with log2(nfft)
-// shared-memory radix-2 passes and a barrier each, took 19x its bound.
-// This one takes 5x at nfft 128 and 12x at nfft 1024 Stokes on an H100
-// (PERF.md): at nfft 1024 only one block of 8 warps fits an SM (153 KB of
-// shared memory, 195 registers), so a step's loads and FFTs do not overlap.
+// shared-memory radix-2 passes and a barrier each, took 19x its bound. At
+// nfft >= 256 registers allow one or two blocks of 8 warps an SM (at nfft
+// 1024 one, with ~181 KB of shared memory at D = 2), too few to hide the
+// loads behind other blocks' arithmetic, so each block hides them behind
+// its own FFTs: at nfft 1024 this one takes 6x its bound, 7x in Stokes, on
+// an H100 (PERF.md), where loading before the FFTs took 11x and 12x.
 //
 // Accuracy: fp32 FIR and FFT (about log2(nfft) rounding steps, well under
 // the 2e-5 peak-normalized bound against the float64 reference); sums over
 // up to 2^19 windows in float64. Twiddles computed in double, stored as
 // float. No fast-math.
 
+#include <atomic>
 #include <cstdint>
 #include <type_traits>
 
@@ -81,6 +93,9 @@ constexpr int kMinWindows = 4;     // windows per step, at least: an FFT a warp
 constexpr int kMaxNfft = 1024;
 constexpr int kMaxNtap = 8;
 constexpr int64_t kPairsChunk = 896;   // 8-byte (x, y) pairs per chunk-frame
+constexpr size_t kMaxSmem = 232448;    // dynamic shared memory of a block
+constexpr int kWideM = 8;   // points per lane of the wide kernels (nfft >= 256)
+constexpr int kMaxDevices = 16;   // devices whose stages plan_pfb keeps
 
 struct PfbArgs {
   const void* x;         // wire (ndf, nchk * 3584) or rows (nseries, ndf, 256)
@@ -88,24 +103,58 @@ struct PfbArgs {
   const float* coeffs;   // (ntap, nfft)
   double* partial;       // (nout * nsub, nchan, ns, nfft)
   int64_t nchk, nchan, nsamp, nblk, wpg, nsub, ts, halo;
-  int nfft, log2n, ntap, sp, w, rows;
+  int nfft, log2n, ntap, sp, w, depth, rows;
 };
+
+// An asynchronous copy of 4 or 8 bytes from device to shared memory; a
+// thread's copies complete in the groups it commits, in order.
+template <int kBytes>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+               "l"(src), "n"(kBytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// until at most kPending of the thread's newest groups are in flight
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
 
 // Wire: the pair of channel ch at sample p is int2 (x word, y word).
 struct PfbWire {
-  __device__ static int2 load(const PfbArgs& a, int64_t ch, int64_t p) {
+  __device__ static const int2* at(const PfbArgs& a, int64_t ch, int64_t p) {
     const int64_t f = p >> 7, s = p & 127;
     const int64_t chk = ch / kChanChk, chan = ch % kChanChk;
-    return __ldg(static_cast<const int2*>(a.x) + (f * a.nchk + chk) *
-                 kPairsChunk + s * kChanChk + chan);
+    return static_cast<const int2*>(a.x) + (f * a.nchk + chk) * kPairsChunk +
+           s * kChanChk + chan;
+  }
+  __device__ static int2 load(const PfbArgs& a, int64_t ch, int64_t p) {
+    return __ldg(at(a, ch, p));
+  }
+  __device__ static void copy(int2* dst, const PfbArgs& a, int64_t ch,
+                              int64_t p) {
+    cp_async<8>(dst, at(a, ch, p));
   }
 };
 
 // Rows: series 2 ch (x) and 2 ch + 1 (y), nsamp int32 words each.
 struct PfbRows {
+  __device__ static const int* at(const PfbArgs& a, int64_t ch, int64_t p) {
+    return static_cast<const int*>(a.x) + 2 * ch * a.nsamp + p;
+  }
   __device__ static int2 load(const PfbArgs& a, int64_t ch, int64_t p) {
-    const int* px = static_cast<const int*>(a.x) + 2 * ch * a.nsamp + p;
+    const int* px = at(a, ch, p);
     return make_int2(__ldg(px), __ldg(px + a.nsamp));
+  }
+  __device__ static void copy(int2* dst, const PfbArgs& a, int64_t ch,
+                              int64_t p) {
+    const int* px = at(a, ch, p);
+    cp_async<4>(&dst->x, px);
+    cp_async<4>(&dst->y, px + a.nsamp);
   }
 };
 
@@ -120,6 +169,37 @@ __device__ __forceinline__ int2 load_pair(const PfbArgs& a, int64_t ch,
   if (a.hist == nullptr) return make_int2(0, 0);
   const int* h = a.hist + 2 * ch * a.halo + a.halo + p;
   return make_int2(h[0], h[a.halo]);
+}
+
+// The same sample into *dst as copies that land when the thread's group is
+// waited for (a zero at once).
+template <class L>
+__device__ __forceinline__ void copy_pair(int2* dst, const PfbArgs& a,
+                                          int64_t ch, int64_t p) {
+  if (p >= 0 && p < a.nblk * a.nfft) {
+    L::copy(dst, a, ch, p);
+  } else if (p < 0 && a.hist != nullptr) {
+    const int* h = a.hist + 2 * ch * a.halo + a.halo + p;
+    cp_async<4>(&dst->x, h);
+    cp_async<4>(&dst->y, h + a.halo);
+  } else {
+    *dst = make_int2(0, 0);
+  }
+}
+
+// Copies of pairs i < n from sample p on into the ring, pair i to ring row
+// (row0 + i / nfft) % R, row0 < R. They stay in flight without unrolling
+// the loop, which would cost registers.
+template <class L>
+__device__ __forceinline__ void copy_run(int2* ring, const PfbArgs& a,
+                                         int64_t ch, int64_t p, int n,
+                                         int row0) {
+#pragma unroll 1
+  for (int i = threadIdx.x; i < n; i += kPfbThreads) {
+    int row = row0 + (i >> a.log2n);
+    row -= row >= a.rows ? a.rows : 0;
+    copy_pair<L>(ring + row * a.nfft + (i & (a.nfft - 1)), a, ch, p + i);
+  }
 }
 
 __device__ __forceinline__ float re16(int w) {
@@ -173,11 +253,22 @@ __device__ __forceinline__ void register_fft(float2 (&a)[M],
   }
 }
 
+// Rows of the sample ring with depth stages: the ntap - 1 before a step's
+// first window and depth steps of W.
+__host__ __device__ constexpr int ring_rows(int depth, int w, int ntap) {
+  return ntap - 1 + depth * w;
+}
+
+// Shared-memory reduction slots: only where threads share a bin.
+__host__ __device__ constexpr int red_slots(int nfft, int ns) {
+  return nfft < kPfbThreads ? kPfbThreads * ns : 0;
+}
+
 // Shared memory of one block, in bytes, and its carve-up (all 8-byte units
 // but the coefficients, last).
-inline size_t pfb_smem(int rows, int sp, int nfft, int ntap, int ns) {
-  return sizeof(int2) * rows * nfft + sizeof(float2) * 2 * sp +
-         sizeof(double) * kPfbThreads * ns +
+inline size_t pfb_smem(int depth, int sp, int nfft, int ntap, int ns) {
+  return sizeof(int2) * ring_rows(depth, sp / nfft, ntap) * nfft +
+         sizeof(float2) * 2 * sp + sizeof(double) * red_slots(nfft, ns) +
          sizeof(float2) * (nfft + kMaxNfft / 64 + 5 * 32) +
          sizeof(float) * ntap * nfft;
 }
@@ -195,8 +286,8 @@ __device__ __forceinline__ void pfb_body(const PfbArgs& a) {
   const int nfft = a.nfft, sp = a.sp, W = a.w, R = a.rows;
   int2* ring = reinterpret_cast<int2*>(smem);               // R x nfft pairs
   float2* buf = reinterpret_cast<float2*>(ring + R * nfft);  // 2 x sp
-  double* red = reinterpret_cast<double*>(buf + 2 * sp);     // ns x threads
-  float2* tw = reinterpret_cast<float2*>(red + kPfbThreads * ns);  // nfft
+  double* red = reinterpret_cast<double*>(buf + 2 * sp);     // red_slots
+  float2* tw = reinterpret_cast<float2*>(red + red_slots(nfft, ns));  // nfft
   float2* twm = tw + nfft;                                   // kM / 2
   float2* tws = twm + kMaxNfft / 64;                         // 5 x 32
   float* coef = reinterpret_cast<float*>(tws + 5 * 32);      // ntap x nfft
@@ -213,6 +304,19 @@ __device__ __forceinline__ void pfb_body(const PfbArgs& a) {
   const int64_t e_end = min(e0 + a.ts, (g + 1) * a.wpg);
   const int64_t first = a.hist != nullptr ? 0 : a.ntap - 1;
 
+  // ring row r % R holds samples p0 + r nfft ..; the first ntap - 1 rows are
+  // the ones before the tile's first window end slot. Step s stages rows
+  // ntap - 1 + s W ... The wide kernels copy (plan_pfb): the halo and, with
+  // two stages, step 0 go first, so that the set-up below runs while they
+  // are in flight. The others load, after the set-up.
+  constexpr bool kCopy = kM >= kWideM;
+  const int64_t p0 = (e0 - a.ntap + 1) * nfft;
+  if constexpr (kCopy) {
+    copy_run<L>(ring, a, ch, p0, static_cast<int>(a.halo), 0);
+    if (a.depth == 2) copy_run<L>(ring, a, ch, p0 + a.halo, sp, a.ntap - 1);
+    cp_async_commit();
+  }
+
   // tw[k1 * 32 + p] = W_nfft^(p k1) (kM > 1), twm[q] = W_kM^q; tws[s * 32
   // + p]: lane p's factor in the cross-lane stage h = 16 >> s, where a lane
   // with bit h set takes (other - own) W_2h^(p mod h), the other other + own
@@ -225,12 +329,10 @@ __device__ __forceinline__ void pfb_body(const PfbArgs& a) {
     tws[i] = l & h ? twiddle(l & (h - 1), 2 * h) : make_float2(1.0f, 0.0f);
   }
   for (int i = tid; i < a.ntap * nfft; i += kPfbThreads) coef[i] = a.coeffs[i];
-
-  // ring row r % R holds samples p0 + r nfft ..; the first ntap - 1 rows are
-  // the ones before the tile's first window end slot
-  const int64_t p0 = (e0 - a.ntap + 1) * nfft;
-  for (int64_t q = tid; q < a.halo; q += kPfbThreads) {
-    ring[q] = load_pair<L>(a, ch, p0 + q);
+  if constexpr (!kCopy) {
+    for (int64_t q = tid; q < a.halo; q += kPfbThreads) {
+      ring[q] = load_pair<L>(a, ch, p0 + q);
+    }
   }
 
   double acc[kBins][ns];
@@ -242,12 +344,30 @@ __device__ __forceinline__ void pfb_body(const PfbArgs& a) {
   const int64_t nsteps = (e_end - e0 + W - 1) / W;
   int base = 0;    // ring row of the step's first window: (st W) % R
   for (int64_t st = 0; st < nsteps; ++st) {
-    // 1. the step's rows ntap - 1 + st W .. into the ring
-    const int64_t qbase = a.halo + st * sp;
-    for (int i = tid; i < sp; i += kPfbThreads) {
-      int row = base + a.ntap - 1 + (i >> a.log2n);
-      row -= row >= R ? R : 0;
-      ring[row * nfft + (i & (nfft - 1))] = load_pair<L>(a, ch, p0 + qbase + i);
+    // 1. the rows of step st + depth - 1 into those that step st - 1's FIR
+    // read last (every warp left them at its barrier after the FFTs); with
+    // copies, then wait for step st's rows: with two stages the copies of
+    // step st + 1 stay in flight through this step's FFTs
+    if constexpr (kCopy) {
+      if (st + a.depth - 1 < nsteps) {
+        const int row0 = base + a.ntap - 1 + (a.depth - 1) * W;
+        copy_run<L>(ring, a, ch, p0 + a.halo + (st + a.depth - 1) * sp, sp,
+                    row0 - (row0 >= R ? R : 0));
+      }
+      cp_async_commit();
+      if (a.depth == 2) {
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+    } else {
+      const int64_t qbase = a.halo + st * sp;
+      for (int i = tid; i < sp; i += kPfbThreads) {
+        int row = base + a.ntap - 1 + (i >> a.log2n);
+        row -= row >= R ? R : 0;
+        ring[row * nfft + (i & (nfft - 1))] =
+            load_pair<L>(a, ch, p0 + qbase + i);
+      }
     }
     __syncthreads();
     // 2. FFT units u = (window j, pol): G side by side per warp
@@ -387,45 +507,98 @@ __global__ void __launch_bounds__(kPfbThreads, 1) pfb_kernel_wide(PfbArgs a) {
   pfb_body<L, kStokes, kM>(a);
 }
 
+using PfbKernel = void (*)(PfbArgs);
+
+// The stages of the sample ring (a.depth, a.rows) and the block's shared
+// memory. The wide kernels (nfft >= 256: one or two blocks an SM, so only
+// the block's own FFTs can hide its loads) take two stages, a step's FFTs
+// running while the next step's samples are copied, where they fit and
+// leave an SM as many blocks as one stage does; else one: a step's samples
+// are copied before its FFTs (at nfft 512 ntap 8 two stages would leave
+// one block an SM instead of two, and ran 16-24% slower, PERF.md). The
+// occupancy API answers once per kernel, device and ntap. At nfft <= 128
+// four or five blocks an SM hide the loads' latency: one stage, loaded
+// (copies at one or two stages ran up to 4% slower there, PERF.md).
 template <class L, bool kStokes, int kM>
-int launch_pfb_m(const PfbArgs& a, int64_t nblocks, size_t smem,
-                 cudaStream_t stream) {
-  void (*kernel)(PfbArgs);
-  if constexpr (kM >= 8) {
+cudaError_t plan_pfb(PfbArgs& a, PfbKernel kernel, size_t* smem) {
+  constexpr int ns = kStokes ? 4 : 1;
+  const size_t one = pfb_smem(1, a.sp, a.nfft, a.ntap, ns);
+  const size_t two = pfb_smem(2, a.sp, a.nfft, a.ntap, ns);
+  if (one > kMaxSmem) return cudaErrorInvalidValue;
+  a.depth = 1;
+  if (kM >= kWideM && two <= kMaxSmem) {
+    static std::atomic<int> found[kMaxDevices][kMaxNtap + 1];   // 0: not yet
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    std::atomic<int>* known = dev < kMaxDevices ? &found[dev][a.ntap] : nullptr;
+    a.depth = known != nullptr ? known->load() : 0;
+    if (a.depth == 0) {
+      int blocks1 = 0, blocks2 = 0;
+      e = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(two));
+      if (e == cudaSuccess) {
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks1, kernel,
+                                                          kPfbThreads, one);
+      }
+      if (e == cudaSuccess) {
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks2, kernel,
+                                                          kPfbThreads, two);
+      }
+      if (e != cudaSuccess) return e;
+      a.depth = blocks2 >= blocks1 ? 2 : 1;
+      if (known != nullptr) known->store(a.depth);
+    }
+  }
+  a.rows = ring_rows(a.depth, a.w, a.ntap);
+  *smem = a.depth == 2 ? two : one;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(*smem));
+}
+
+// *depth: the stages of a launch made.
+template <class L, bool kStokes, int kM>
+int launch_pfb_m(PfbArgs& a, int64_t nblocks, cudaStream_t stream,
+                 int* depth) {
+  PfbKernel kernel;
+  if constexpr (kM >= kWideM) {
     kernel = pfb_kernel_wide<L, kStokes, kM>;
   } else {
     kernel = pfb_kernel<L, kStokes, kM>;
   }
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  size_t smem;
+  cudaError_t e = plan_pfb<L, kStokes, kM>(a, kernel, &smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   kernel<<<static_cast<unsigned>(nblocks), kPfbThreads, smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  e = cudaGetLastError();
+  if (e == cudaSuccess) *depth = a.depth;
+  return static_cast<int>(e);
 }
 
 // the instantiation of nfft's points per lane, max(nfft / 32, 1); rows
 // take nfft 128-1024 only (the JAX package's rows rule)
 template <class L, bool kStokes>
-int launch_pfb(const PfbArgs& a, int64_t nblocks, size_t smem,
-               cudaStream_t stream) {
+int launch_pfb(PfbArgs& a, int64_t nblocks, cudaStream_t stream,
+               int* depth) {
   constexpr bool wire = std::is_same<L, PfbWire>::value;
   switch (a.nfft >> 5) {
     case 0:
     case 1:
       if constexpr (wire) {
-        return launch_pfb_m<L, kStokes, 1>(a, nblocks, smem, stream);
+        return launch_pfb_m<L, kStokes, 1>(a, nblocks, stream, depth);
       }
       break;
     case 2:
       if constexpr (wire) {
-        return launch_pfb_m<L, kStokes, 2>(a, nblocks, smem, stream);
+        return launch_pfb_m<L, kStokes, 2>(a, nblocks, stream, depth);
       }
       break;
-    case 4: return launch_pfb_m<L, kStokes, 4>(a, nblocks, smem, stream);
-    case 8: return launch_pfb_m<L, kStokes, 8>(a, nblocks, smem, stream);
-    case 16: return launch_pfb_m<L, kStokes, 16>(a, nblocks, smem, stream);
-    default: return launch_pfb_m<L, kStokes, 32>(a, nblocks, smem, stream);
+    case 4: return launch_pfb_m<L, kStokes, 4>(a, nblocks, stream, depth);
+    case 8: return launch_pfb_m<L, kStokes, 8>(a, nblocks, stream, depth);
+    case 16: return launch_pfb_m<L, kStokes, 16>(a, nblocks, stream, depth);
+    default: return launch_pfb_m<L, kStokes, 32>(a, nblocks, stream, depth);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -440,17 +613,18 @@ extern "C" {
 // or 1. coeffs (ntap, nfft) float32; hist (nchk * 14, (ntap - 1) * nfft, 2)
 // int16 or null (one-shot). ts: window end slots per tile, a multiple of
 // the step's max(4, 1024 / nfft) windows; nsub = ceil(wpg / ts) tiles per
-// spectrum.
+// spectrum. *depth: the stages of the sample ring the launch took, 2 (a
+// step's samples copied during the step before) or 1 (before its FFTs).
 int pafb2p_pfb(const void* x, int rows, int64_t ndf, int64_t nchk,
                int64_t nfft, int64_t ntap, int64_t nout, int stokes,
                const void* coeffs, const void* hist, int64_t ts, int64_t nsub,
-               void* partial, void* stream) {
+               void* partial, void* stream, int* depth) {
   const cudaError_t bad = cudaErrorInvalidValue;
   if (nfft < 2 || nfft > kMaxNfft || (nfft & (nfft - 1)) || ntap < 1 ||
       ntap > kMaxNtap || ndf <= 0 || nchk <= 0 || nout <= 0) {
     return static_cast<int>(bad);
   }
-  PfbArgs a;
+  PfbArgs a{};
   a.x = x;
   a.hist = static_cast<const int*>(hist);
   a.coeffs = static_cast<const float*>(coeffs);
@@ -475,17 +649,15 @@ int pafb2p_pfb(const void* x, int rows, int64_t ndf, int64_t nchk,
   }
   a.ts = ts;
   a.nsub = nsub;
-  a.rows = a.ntap - 1 + a.w;
   const int64_t nblocks = nout * nsub * a.nchan;
   if (nblocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const size_t smem = pfb_smem(a.rows, a.sp, a.nfft, a.ntap, stokes ? 4 : 1);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows) {
-    return stokes ? launch_pfb<PfbRows, true>(a, nblocks, smem, s)
-                  : launch_pfb<PfbRows, false>(a, nblocks, smem, s);
+    return stokes ? launch_pfb<PfbRows, true>(a, nblocks, s, depth)
+                  : launch_pfb<PfbRows, false>(a, nblocks, s, depth);
   }
-  return stokes ? launch_pfb<PfbWire, true>(a, nblocks, smem, s)
-                : launch_pfb<PfbWire, false>(a, nblocks, smem, s);
+  return stokes ? launch_pfb<PfbWire, true>(a, nblocks, s, depth)
+                : launch_pfb<PfbWire, false>(a, nblocks, s, depth);
 }
 
 // partial (nout * nsub, nchan, ns, nfft) float64 -> out (nout, ns, nchan *

@@ -193,7 +193,7 @@ def _run_jobs(jobs: list[tuple[list[str], str]]) -> list[str]:
 
 
 _SIGNATURES = {
-    "pafb2p_pfb": "p i l l l l l i p p l l p p",
+    "pafb2p_pfb": "p i l l l l l i p p l l p p p",
     "pafb2p_pfb_finish": "p p l l l l l i d d p",
     "pafb2p_power_wire": "p l l l p p",
     "pafb2p_power_rows": "p l l l p p",

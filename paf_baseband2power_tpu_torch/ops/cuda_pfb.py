@@ -8,7 +8,11 @@ Dispatch is by the input's device and nothing else, as in
 ``ops/cuda_power.py``: a CPU tensor goes to the plain version in
 ``ops/pfb.py``, a CUDA tensor to the kernel, which either launches or
 raises. Launches are counted in ``cuda_power.launches`` by wrapper name,
-and the float64 partials each call writes in ``partial_bytes``.
+the float64 partials each call writes in ``partial_bytes``, and the
+kernel's launches by the stages of its sample ring that ``pafb2p_pfb``
+reports having launched with in ``stage_depths`` (2 where a step's
+samples are copied while the step before runs its FFTs, 1 where they
+reach shared memory before the step's own).
 
 While a torch profiler records, ``_launch``'s steps are spans
 (``runtime/trace.py``): ``pafb2p.pfb.carry`` (the previous block's halo
@@ -26,6 +30,7 @@ the CUDA wrappers still raise for a shape the kernel does not take.
 from __future__ import annotations
 
 import collections
+import ctypes
 
 import numpy as np
 import torch
@@ -84,6 +89,9 @@ def _check_kernel_shape(nfft: int, ntap: int) -> None:
 _coeffs: dict = {}
 # float64 bytes of the partials each wrapper's calls wrote, by wrapper name
 partial_bytes: collections.Counter = collections.Counter()
+# the kernel's launches by stage depth
+stage_depths: collections.Counter = collections.Counter()
+
 
 
 def _device_coeffs(nfft: int, ntap: int, window: str,
@@ -101,7 +109,10 @@ def _launch(block: torch.Tensor, layout: str, nfft: int, ntap: int,
     """Run ``pafb2p_pfb`` and its finish kernel on a CUDA block; returns
     float32 ``(nout, ns, nchan * nfft)`` and the float64 partials' bytes.
     ``lib``: another build of ``csrc/pfb.cu`` with the same C interface
-    (``probes/pfb_compare.py``), else the package's.
+    (``probes/pfb_compare.py``), else the package's. Counts the launch in
+    ``stage_depths`` by the depth the kernel reports (0 from an older
+    build that takes no depth pointer: the C calling convention leaves the
+    extra argument unread).
 
     The partials are the call's own, from the caching allocator on the
     current stream, as ``ops/cuda_power.py``'s scratch: two pipelines on
@@ -133,13 +144,15 @@ def _launch(block: torch.Tensor, layout: str, nfft: int, ntap: int,
     div = (PF.mean_divisors(nout, wpg, ntap, stokes, hist is not None)
            if mean else [0.0])
     stream = torch.cuda.current_stream(block.device).cuda_stream
+    depth = ctypes.c_int(0)
     with torch.cuda.device(block.device):
         with span("pfb.kernel"):
             _raise(lib, lib.pafb2p_pfb(
                 x.data_ptr(), int(layout == "rows"), ndf, nchk, nfft, ntap,
                 nout, int(stokes), coeffs.data_ptr(),
                 hist.data_ptr() if hist is not None else None, ts, nsub,
-                partial.data_ptr(), stream))
+                partial.data_ptr(), stream, ctypes.byref(depth)))
+        stage_depths[depth.value] += 1
         with span("pfb.finish"):
             _raise(lib, lib.pafb2p_pfb_finish(
                 partial.data_ptr(), out.data_ptr(), nchan, nfft, nout, nsub,

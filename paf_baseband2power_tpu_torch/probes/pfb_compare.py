@@ -13,7 +13,8 @@ calls of the package's kernel are bit-equal, then times both on one
 full-range block drawn on the card in turns (other, package, package,
 other; CUDA events, after a warm-up) in the five cases of
 ``chip_smoke.py``'s phase 6, reading the SM clock and power while the
-card runs. The last line is one JSON object.
+card runs. In every check and case it reports whether the two builds'
+records are bit-equal. The last line is one JSON object.
 """
 
 from __future__ import annotations
@@ -87,26 +88,31 @@ def main(argv=None) -> int:
     x, prev = (torch.randint(-32768, 32768, (args.check_ndf, args.nchk * 3584),
                              dtype=torch.int16, device=dev, generator=gen)
                for _ in range(2))
-    errors = {}
+    errors, bit_equal = {}, {}
     for nfft, ntap, nout, stokes in CHECKS:
         carry = PF.pfb_history(prev, nfft, ntap)
         want = PF.pfb_spectra(x, nfft, ntap, nout=nout, stokes=True,
                               history=carry, dtype=torch.float64)
         want = want if stokes else want[:, :1]
+        check = f"nfft {nfft} ntap {ntap} nout {nout} stokes {stokes}"
+        got = {}
         for which in libs:
-            e = peak_err(run(which, x, nfft, ntap, nout, stokes, carry), want)
-            errors[f"{which} nfft {nfft} ntap {ntap} nout {nout} "
-                   f"stokes {stokes}"] = e[1]
+            got[which] = run(which, x, nfft, ntap, nout, stokes, carry)
+            e = peak_err(got[which], want)
+            errors[f"{which} {check}"] = e[1]
             if e[1] >= PARITY_BOUND:
                 raise SystemExit(f"{which} nfft {nfft} ntap {ntap}: "
                                  f"{e[1]:.3e} against float64")
+        bit_equal[check] = torch.equal(got["package"], got["other"])
         a = run("package", x, nfft, ntap, nout, stokes, carry, mean=True)
         b = run("package", x, nfft, ntap, nout, stokes, carry, mean=True)
         if not torch.equal(a, b):
             raise SystemExit(f"nfft {nfft}: two calls differ")
     print(f"[check] {args.check_ndf} x {args.nchk}: both builds within "
           f"{PARITY_BOUND} of float64 (worst {max(errors.values()):.3e}); "
-          "two calls of the package's bit-equal", flush=True)
+          "two calls of the package's bit-equal; the builds' records "
+          f"bit-equal in {sum(bit_equal.values())} of {len(bit_equal)}",
+          flush=True)
     del x, prev
 
     big = torch.randint(-32768, 32768, (args.ndf, args.nchk * 3584),
@@ -127,6 +133,7 @@ def main(argv=None) -> int:
     for case, nfft, stokes, nout in CASES:
         fns = {w: (lambda w=w: run(w, big, nfft, 4, nout, stokes))
                for w in libs}
+        bit_equal[case] = torch.equal(fns["package"](), fns["other"]())
         o1, p1, p2, o2 = (ms(fns[w], args.iters)
                           for w in ("other", "package", "package", "other"))
         times[case] = {"package": (p1 + p2) / 2, "other": (o1 + o2) / 2}
@@ -137,11 +144,12 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
         print(f"[time] {case}: package {times[case]['package']:.4f} ms, "
               f"other {times[case]['other']:.4f} ms per {args.ndf} x "
-              f"{args.nchk} block ({smi('name,power.limit')})", flush=True)
+              f"{args.nchk} block ({smi('name,power.limit')}); records "
+              f"{'' if bit_equal[case] else 'not '}bit-equal", flush=True)
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "smi": smi("name,power.limit"), "ndf": args.ndf,
                       "nchk": args.nchk, "ms": times, "under_load": load,
-                      "errors": errors}))
+                      "errors": errors, "bit_equal": bit_equal}))
     return 0
 
 
