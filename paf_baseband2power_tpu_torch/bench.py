@@ -26,8 +26,8 @@ of the H100's 3.35 TB/s (``h100.HBM_BPS``); absent (null) on the CPU.
 ``--platform cuda`` (the default) fails without a CUDA device; every mode
 then runs its CUDA wrapper (``ops/cuda_power.py``, ``ops/cuda_pfb.py``),
 and a build or launch failure ends the run. A ``--pfb`` shape the kernel
-does not take (``cuda_pfb.kernel_refuses``) runs through torch.fft on the
-card, as ``PowerPipeline`` routes it, and the label says so.
+does not take runs through torch.fft on the card, as ``cuda_pfb.route``
+routes it for ``PowerPipeline``, and the label says so.
 ``--platform cpu`` runs the plain PyTorch versions. ``--impl torch`` runs
 the plain versions on the chosen device. No path falls back to another:
 on ``cuda`` a mode that launched no kernel is an error. Every line names
@@ -102,14 +102,12 @@ def ops_for(impl: str, device: torch.device) -> Ops:
 
 def pfb_route(ops: Ops, nfft: int) -> tuple[Callable, Callable, str]:
     """``(spectra, power, route)`` for ``nfft`` at ``NTAP`` taps: on the
-    CUDA wrappers, the kernel where it takes the shape, else torch.fft on
-    the card (``PowerPipeline``'s rule); otherwise ``ops``' own."""
+    CUDA wrappers, ``cuda_pfb.route``'s pair, labelled ``cuda`` where it is
+    the kernel's, else with the route's label; otherwise ``ops``' own."""
     if ops.label != "cuda":
         return ops.pfb_spectra, ops.pfb_power, ops.label
-    why = CF.kernel_refuses(nfft, NTAP)
-    if why is None:
-        return ops.pfb_spectra, ops.pfb_power, "cuda"
-    return CF.pfb_spectra_torch, CF.pfb_power_torch, f"torch.fft: {why}"
+    power, spectra, label = CF.route(nfft, NTAP)
+    return spectra, power, ops.label if spectra is ops.pfb_spectra else label
 
 
 def carried(step2: Callable) -> Callable:
@@ -434,7 +432,7 @@ def result(argv=None) -> dict:
         ap.error("--impl cuda needs --platform cuda")
     if args.pfb and args.device_layout:
         try:
-            PF.check_rows_nfft(args.pfb)
+            CF.check_layout(args.pfb, NTAP, "rows")
         except ValueError as e:
             ap.error(str(e))
     device = device_for(ap, args.platform)

@@ -126,7 +126,6 @@ def main(argv=None) -> int:
         device = torch.device("cpu")
 
     from ..io.dada import output_header
-    from ..ops.pfb import check_rows_nfft, check_rows_ntap
     from ..runtime.debug import set_debug
     from ..runtime.pipeline import (
         FileSink,
@@ -162,12 +161,16 @@ def main(argv=None) -> int:
         in_header = source.header
         args.device_layout = source.layout == "rows"
 
-    if args.pfb and args.device_layout:
-        try:
-            check_rows_nfft(args.pfb)
-            check_rows_ntap(args.ntap)
-        except ValueError as e:
-            ap.error(str(e))
+    # the step for these flags, chosen before any output is opened; a mode
+    # the step refuses is a usage error
+    try:
+        pipe = PowerPipeline(device, mean=args.mean, depth=args.depth,
+                             log_dir=args.dir, nout=args.nspectra,
+                             device_layout=args.device_layout,
+                             stokes=args.stokes, pfb_nfft=args.pfb,
+                             pfb_ntap=args.ntap, pfb_window=args.window)
+    except ValueError as e:
+        ap.error(str(e))
 
     # --- sink -------------------------------------------------------------
     hdr = output_header(
@@ -201,11 +204,6 @@ def main(argv=None) -> int:
 
     if args.debug:
         set_debug(True)
-    pipe = PowerPipeline(device, mean=args.mean, depth=args.depth,
-                         log_dir=args.dir, nout=args.nspectra,
-                         device_layout=args.device_layout,
-                         stokes=args.stokes, pfb_nfft=args.pfb,
-                         pfb_ntap=args.ntap, pfb_window=args.window)
     if not args.no_warmup:
         pipe.warmup(args.ndf, args.nchk)
     with profile_trace(args.profile, device):

@@ -19,12 +19,14 @@ While a torch profiler records, ``_launch``'s steps are spans
 on the card), ``pafb2p.pfb.kernel`` (``pafb2p_pfb``) and
 ``pafb2p.pfb.finish`` (``pafb2p_pfb_finish``).
 
-The kernel takes the shapes ``kernel_takes`` accepts. The executor sends
+The kernel takes the shapes ``kernel_takes`` accepts. ``route`` sends
 every other shape to ``pfb_spectra_torch`` / ``pfb_power_torch``: the plain
 version on the card through ``torch.fft``, as the JAX package runs the
 shapes its fused kernel does not take in XLA. Those runs are counted as
 ``pfb_torch``. The choice is by ``(nfft, ntap)`` alone, never by a failure:
 the CUDA wrappers still raise for a shape the kernel does not take.
+``route`` and ``streaming_step`` (the executor's step for a PFB mode) are
+the one home of that choice; every caller asks them.
 """
 
 from __future__ import annotations
@@ -222,3 +224,38 @@ def pfb_power_torch(block: torch.Tensor, nfft: int, ntap: int = 4, **kw):
     if not _on_cpu(block):
         launches["pfb_torch"] += 1
     return PF.pfb_power(block, nfft, ntap, **kw)
+
+
+def route(nfft: int, ntap: int):
+    """``(power, spectra, label)`` for ``(nfft, ntap)``: the CUDA wrappers
+    where the kernel takes the shape (label ``"CUDA kernel"``), else the
+    torch.fft route (``"torch.fft: <why>"``); looked up on this module at
+    each call."""
+    why = kernel_refuses(nfft, ntap)
+    if why is None:
+        return pfb_power_cuda, pfb_spectra_cuda, "CUDA kernel"
+    return pfb_power_torch, pfb_spectra_torch, f"torch.fft: {why}"
+
+
+def check_layout(nfft: int, ntap: int, layout: str) -> None:
+    """Raise ValueError for a series-rows ``(nfft, ntap)`` the kernel's rows
+    path does not take (the JAX package's rules and messages)."""
+    if layout == "rows":
+        PF.check_rows_nfft(nfft)
+        PF.check_rows_ntap(ntap)
+
+
+def streaming_step(nfft: int, ntap: int = 4, window: str = "hamming",
+                   nout: int = 1, stokes: bool = False, mean: bool = False,
+                   layout: str = "wire"):
+    """``(step, label)``: the streaming ``step(x, carry) -> (record,
+    carry)`` of a PFB mode on ``route``'s functions (the power one at
+    ``nout = 1`` without Stokes, else spectra) and ``route``'s label.
+    Raises ValueError for a rows shape ``check_layout`` refuses."""
+    check_layout(nfft, ntap, layout)
+    power, spectra, label = route(nfft, ntap)
+    kw = dict(window=window, mean=mean, layout=layout)
+    if nout == 1 and not stokes:
+        return PF.make_streaming_pfb(nfft, ntap, power=power, **kw), label
+    return PF.make_streaming_spectra(nfft, ntap, nout=nout, stokes=stokes,
+                                     spectra=spectra, **kw), label

@@ -12,6 +12,10 @@ either launches or raises. No path falls back from one to the other.
 
 ``launches`` counts kernel launches by wrapper name; each wrapper adds one
 where its kernel is launched, so a run can show it went through the card.
+
+This module is the one home of the direct step: every wrapper is a call of
+one body (``_detect``), and ``detect`` gives the executor its record for a
+mode (power or Stokes, wire or rows, ``nout``, ``mean``).
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ import collections
 
 import torch
 
-from ..constants import NCHAN_CHK
+from ..constants import NCHAN_CHK, NPOL_SAMP
 from . import power as P
 from ._build import load_library
 
@@ -51,6 +55,9 @@ def _accumulate(family: str, layout: str, x: torch.Tensor,
                 dims: tuple[int, int], shape: tuple[int, ...]) -> torch.Tensor:
     """Run ``pafb2p_<family>_<layout>`` on ``x`` into an int64 scratch of
     ``shape``: the exact window sums."""
+    if layout == "rows" and x.shape[-1] != P.ROW_LANES:
+        raise ValueError(f"series rows need {P.ROW_LANES} lanes per frame, "
+                         f"got {x.shape[-1]}")
     lib = load_library()
     if x.data_ptr() % 16:
         raise ValueError("the kernels need 16-byte aligned blocks")
@@ -78,11 +85,59 @@ def _finish(family: str, acc: torch.Tensor,
     return out
 
 
-def _launch(family: str, layout: str, x: torch.Tensor, dims: tuple[int, int],
-            shape: tuple[int, ...], divisor: int | None) -> torch.Tensor:
-    """The window sums of ``x`` and their float32 epilogue."""
-    return _finish(family, _accumulate(family, layout, x, dims, shape),
-                   divisor)
+def _wrapper(stokes: bool, layout: str, nout: int) -> str:
+    """The wrapper whose name counts a mode's launches: ``baseband2power``
+    or ``baseband2stokes``, then ``_cuda`` (wire, one window),
+    ``_scrunch_cuda`` (wire) or ``_scrunch_rows_cuda`` (rows)."""
+    family = "stokes" if stokes else "power"
+    if layout == "rows":
+        return f"baseband2{family}_scrunch_rows_cuda"
+    return f"baseband2{family}_{'' if nout == 1 else 'scrunch_'}cuda"
+
+
+def _sums(block: torch.Tensor, nout: int, stokes: bool, layout: str,
+          name: str | None) -> tuple[torch.Tensor, int]:
+    """The exact int64 window sums of ``block`` and the frames per window:
+    the plain version's for a CPU tensor, else the kernel's, counted under
+    ``name`` (by default ``_wrapper``'s)."""
+    if layout == "wire":
+        ndf, nchk = P.wire_geometry(block, nout)
+        x, dims, nchan = block, (ndf, nchk), nchk * NCHAN_CHK
+        plain = P.stokes_sums_2d if stokes else P.power_sums_2d
+    elif layout == "rows":
+        x = P.rows_geometry(block, nout)
+        nseries, ndf, _ = x.shape
+        dims, nchan = (nseries, ndf), nseries // NPOL_SAMP
+        plain = P.stokes_sums_rows if stokes else P.power_sums_rows
+    else:
+        raise ValueError(f"unknown layout '{layout}'")
+    if _on_cpu(block):
+        return plain(x, nout), ndf // nout
+    acc = _accumulate("stokes" if stokes else "power", layout, x, dims,
+                      (nout, 4, nchan) if stokes else (nout, nchan))
+    launches[name or _wrapper(stokes, layout, nout)] += 1
+    return acc, ndf // nout
+
+
+def _detect(block: torch.Tensor, nout: int, stokes: bool, layout: str,
+            mean: bool, name: str | None = None) -> torch.Tensor:
+    """Float32 records ``(nout, nchan)``, or ``(nout, 4, nchan)`` with
+    ``stokes``, of a wire or rows block: the body of every wrapper."""
+    acc, ndf_w = _sums(block, nout, stokes, layout, name)
+    divisor = None
+    if mean:
+        divisor = (P.stokes_mean_divisor if stokes else P.mean_divisor)(ndf_w)
+    return finish_sums(acc, stokes, divisor)
+
+
+def detect(block: torch.Tensor, nout: int = 1, stokes: bool = False,
+           layout: str = "wire", mean: bool = False) -> torch.Tensor:
+    """The executor's record of a wire ``(ndf, nchk * 3584)`` or rows
+    ``(nseries, ndf, 256)`` block: ``(nout, nchan)`` float32 power or
+    ``(nout, 4, nchan)`` Stokes I, Q, U, V, without the ``nout`` axis at
+    ``nout = 1``. Counted under ``_wrapper``'s name for the mode."""
+    out = _detect(block, nout, stokes, layout, mean)
+    return out.select(0, 0) if nout == 1 else out
 
 
 def detect_sums(x: torch.Tensor, nout: int = 1, stokes: bool = False,
@@ -94,30 +149,9 @@ def detect_sums(x: torch.Tensor, nout: int = 1, stokes: bool = False,
     total into the records a single device gives, bit for bit.
 
     On the card this is the detection kernel without its epilogue, counted
-    under the wrapper that launches it for the same shape; on the CPU the
-    plain version's sums."""
-    family = "stokes" if stokes else "power"
-    if layout == "wire":
-        ndf, nchk = P.wire_geometry(x, nout)
-        if _on_cpu(x):
-            return (P.stokes_sums_2d if stokes else P.power_sums_2d)(x, nout)
-        dims, nchan = (ndf, nchk), nchk * NCHAN_CHK
-        name = (f"baseband2{family}_cuda" if nout == 1
-                else f"baseband2{family}_scrunch_cuda")
-    elif layout == "rows":
-        x = P.rows_geometry(x, nout)
-        if _on_cpu(x):
-            return (P.stokes_sums_rows if stokes else P.power_sums_rows)(
-                x, nout)
-        dims = _rows_dims(x)
-        nchan = dims[0] // 2
-        name = f"baseband2{family}_scrunch_rows_cuda"
-    else:
-        raise ValueError(f"unknown layout '{layout}'")
-    shape = (nout, 4, nchan) if stokes else (nout, nchan)
-    acc = _accumulate(family, layout, x, dims, shape)
-    launches[name] += 1
-    return acc
+    as ``detect`` counts the same mode; on the CPU the plain version's
+    sums."""
+    return _sums(x, nout, stokes, layout, None)[0]
 
 
 def finish_sums(acc: torch.Tensor, stokes: bool = False,
@@ -140,27 +174,15 @@ def baseband2power_scrunch_cuda(block2d: torch.Tensor, nout: int,
                                 mean: bool = False) -> torch.Tensor:
     """Wire block ``(ndf, nchk * 3584) int16`` -> ``(nout, nchk * 7)``
     float32 (port of ``baseband2power_scrunch_pallas``)."""
-    ndf, nchk = P.wire_geometry(block2d, nout)
-    if _on_cpu(block2d):
-        return P.baseband2power_scrunch_2d(block2d, nout, mean=mean)
-    out = _launch("power", "wire", block2d, (ndf, nchk),
-                  (nout, nchk * NCHAN_CHK),
-                  P.mean_divisor(ndf // nout) if mean else None)
-    launches["baseband2power_scrunch_cuda"] += 1
-    return out
+    return _detect(block2d, nout, False, "wire", mean,
+                   "baseband2power_scrunch_cuda")
 
 
 def baseband2power_cuda(block2d: torch.Tensor,
                         mean: bool = False) -> torch.Tensor:
     """Wire block ``(ndf, nchk * 3584) int16`` -> ``(nchk * 7,)`` float32
     (port of ``baseband2power_pallas``)."""
-    ndf, nchk = P.wire_geometry(block2d, 1)
-    if _on_cpu(block2d):
-        return P.baseband2power_2d(block2d, mean=mean)
-    out = _launch("power", "wire", block2d, (ndf, nchk),
-                  (1, nchk * NCHAN_CHK), P.mean_divisor(ndf) if mean else None)
-    launches["baseband2power_cuda"] += 1
-    return out[0]
+    return detect(block2d, 1, False, "wire", mean)
 
 
 def baseband2power_cuda_bytes(raw_u8: torch.Tensor, ndf: int, nchk: int,
@@ -176,23 +198,7 @@ def baseband2power_scrunch_rows_cuda(rows: torch.Tensor, nout: int = 1,
     """Series rows ``(nseries, ndf, 256)`` (or 2-D ``(nseries, ndf * 256)``)
     int16 -> ``(nout, nseries / 2)`` float32 (port of
     ``baseband2power_scrunch_rows_pallas``)."""
-    x3 = P.rows_geometry(rows, nout)
-    if _on_cpu(rows):
-        return P.baseband2power_scrunch_rows(rows, nout, mean=mean)
-    nseries, ndf = _rows_dims(x3)
-    out = _launch("power", "rows", x3, (nseries, ndf), (nout, nseries // 2),
-                  P.mean_divisor(ndf // nout) if mean else None)
-    launches["baseband2power_scrunch_rows_cuda"] += 1
-    return out
-
-
-def _rows_dims(x3: torch.Tensor) -> tuple[int, int]:
-    """``(nseries, ndf)`` of a 3-D rows block the kernels can index."""
-    nseries, ndf, lanes = x3.shape
-    if lanes != P.ROW_LANES:
-        raise ValueError(f"series rows need {P.ROW_LANES} lanes per frame, "
-                         f"got {lanes}")
-    return nseries, ndf
+    return _detect(rows, nout, False, "rows", mean)
 
 
 def baseband2stokes_scrunch_cuda(block2d: torch.Tensor, nout: int,
@@ -200,28 +206,15 @@ def baseband2stokes_scrunch_cuda(block2d: torch.Tensor, nout: int,
     """Wire block ``(ndf, nchk * 3584) int16`` -> ``(nout, 4, nchk * 7)``
     float32, rows I, Q, U, V (port of ``baseband2stokes_scrunch_pallas``,
     any ``nout`` dividing ``ndf``)."""
-    ndf, nchk = P.wire_geometry(block2d, nout)
-    if _on_cpu(block2d):
-        return P.baseband2stokes_scrunch_2d(block2d, nout, mean=mean)
-    out = _launch("stokes", "wire", block2d, (ndf, nchk),
-                  (nout, 4, nchk * NCHAN_CHK),
-                  P.stokes_mean_divisor(ndf // nout) if mean else None)
-    launches["baseband2stokes_scrunch_cuda"] += 1
-    return out
+    return _detect(block2d, nout, True, "wire", mean,
+                   "baseband2stokes_scrunch_cuda")
 
 
 def baseband2stokes_cuda(block2d: torch.Tensor,
                          mean: bool = False) -> torch.Tensor:
     """Wire block ``(ndf, nchk * 3584) int16`` -> ``(4, nchk * 7)`` float32,
     rows I, Q, U, V (port of ``baseband2stokes_pallas``)."""
-    ndf, nchk = P.wire_geometry(block2d, 1)
-    if _on_cpu(block2d):
-        return P.baseband2stokes_2d(block2d, mean=mean)
-    out = _launch("stokes", "wire", block2d, (ndf, nchk),
-                  (1, 4, nchk * NCHAN_CHK),
-                  P.stokes_mean_divisor(ndf) if mean else None)
-    launches["baseband2stokes_cuda"] += 1
-    return out[0]
+    return detect(block2d, 1, True, "wire", mean)
 
 
 def baseband2stokes_scrunch_rows_cuda(rows: torch.Tensor, nout: int = 1,
@@ -229,12 +222,4 @@ def baseband2stokes_scrunch_rows_cuda(rows: torch.Tensor, nout: int = 1,
     """Series rows ``(nseries, ndf, 256)`` (or 2-D ``(nseries, ndf * 256)``)
     int16 -> ``(nout, 4, nseries / 2)`` float32, rows I, Q, U, V (port of
     ``baseband2stokes_scrunch_rows_pallas``, both its tile classes)."""
-    x3 = P.rows_geometry(rows, nout)
-    if _on_cpu(rows):
-        return P.baseband2stokes_scrunch_rows(rows, nout, mean=mean)
-    nseries, ndf = _rows_dims(x3)
-    out = _launch("stokes", "rows", x3, (nseries, ndf),
-                  (nout, 4, nseries // 2),
-                  P.stokes_mean_divisor(ndf // nout) if mean else None)
-    launches["baseband2stokes_scrunch_rows_cuda"] += 1
-    return out
+    return _detect(rows, nout, True, "rows", mean)

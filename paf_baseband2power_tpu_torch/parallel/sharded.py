@@ -252,15 +252,6 @@ def make_sharded_stokes_scrunch_step(mesh, nout: int, mean: bool = False):
 
 # --- the PFB across time shards ---------------------------------------------
 
-def _pfb_fns(nfft: int, ntap: int):
-    """(power, spectra) entry points for wire blocks of ``(nfft, ntap)``:
-    the CUDA kernel where it takes the shape, else the torch.fft route,
-    by shape alone."""
-    if CPF.kernel_takes(nfft, ntap):
-        return CPF.pfb_power_cuda, CPF.pfb_spectra_cuda
-    return CPF.pfb_power_torch, CPF.pfb_spectra_torch
-
-
 def _pfb_beams(blocks, time: AxisGroup, nfft: int, ntap: int, window: str,
                nout: int, stokes: bool, mean: bool, shift: bool,
                history, return_history: bool,
@@ -307,7 +298,7 @@ def _pfb_beams(blocks, time: AxisGroup, nfft: int, ntap: int, window: str,
             f"of {d} slots < ntap-1 windows; pick nout or the time-shard "
             "count so that they align")
     nsub = nblk_l // d
-    power_fn, spectra_fn = _pfb_fns(nfft, ntap)
+    power_fn, spectra_fn, _ = CPF.route(nfft, ntap)
     tails = None
     if n_time > 1 or return_history:
         tails = torch.stack([PF.pfb_history(b, nfft, ntap)

@@ -52,7 +52,6 @@ from .. import constants as C
 from ..io.dada import DadaFileReader, DadaFileWriter, DadaHeader, output_header
 from ..ops import cuda_pfb as CPF
 from ..ops import cuda_power as CP
-from ..ops import pfb as PF
 from ..ops.frame import synthetic_block
 from . import debug
 from .host_register import HOST_REGISTRY
@@ -256,7 +255,9 @@ class PowerPipeline:
     total power. ``pfb_nfft`` channelizes each coarse channel into that
     many fine channels first (``pfb_ntap`` taps, ``pfb_window``): through
     the CUDA kernel where ``cuda_pfb.kernel_takes`` the shape, else through
-    ``torch.fft`` (``cuda_pfb.pfb_*_torch``), chosen once, here.
+    ``torch.fft`` (``cuda_pfb.pfb_*_torch``). The step is chosen once, at
+    construction, by its home: ``cuda_pfb.streaming_step`` with the PFB,
+    else ``cuda_power.detect``.
 
     ``power_fn`` replaces the step (the JAX package's argument of that
     name): ``power_fn(x) -> record``, or with ``pfb_nfft`` a streaming
@@ -274,37 +275,26 @@ class PowerPipeline:
         if nout < 1:
             raise ValueError(f"nout={nout} must be >= 1")
         self.device = torch.device(device)
-        self._mean, self._nout = mean, nout
+        self._nout = nout
         self._device_layout = device_layout
         self._stokes = stokes
         self._depth = max(1, depth)
-        self._pfb = None
-        self._pfb_route = ""
-        self._power_fn = power_fn if not pfb_nfft else None
+        layout = "rows" if device_layout else "wire"
+        # the PFB route's label, empty without the PFB
+        self._pfb_route = "power_fn" if pfb_nfft else ""
         if pfb_nfft and power_fn is not None:
-            self._pfb, self._pfb_route = power_fn, "power_fn"
+            self._step = power_fn
         elif pfb_nfft:
-            if device_layout:
-                PF.check_rows_nfft(pfb_nfft)
-                PF.check_rows_ntap(pfb_ntap)
-            kw = dict(window=pfb_window, mean=mean,
-                      layout="rows" if device_layout else "wire")
-            # by shape alone, as the JAX factories choose the fused kernel
-            why = CPF.kernel_refuses(pfb_nfft, pfb_ntap)
-            self._pfb_route = ("CUDA kernel" if why is None
-                               else f"torch.fft: {why}")
-            if nout == 1 and not stokes:
-                self._pfb = PF.make_streaming_pfb(
-                    pfb_nfft, pfb_ntap, power=CPF.pfb_power_cuda
-                    if why is None else CPF.pfb_power_torch, **kw)
-            else:
-                self._pfb = PF.make_streaming_spectra(
-                    pfb_nfft, pfb_ntap, nout=nout, stokes=stokes,
-                    spectra=CPF.pfb_spectra_cuda
-                    if why is None else CPF.pfb_spectra_torch, **kw)
+            self._step, self._pfb_route = CPF.streaming_step(
+                pfb_nfft, pfb_ntap, pfb_window, nout, stokes, mean, layout)
+        elif power_fn is not None:
+            self._step = lambda x, carry: (power_fn(x), carry)
+        else:
+            self._step = lambda x, carry: (
+                CP.detect(x, nout, stokes, layout, mean), carry)
         self._carry = None
         self.log = open_log(name, log_dir)
-        if self._pfb is not None:
+        if self._pfb_route:
             self.log.info("PFB route: %s", self._pfb_route)
 
     def power(self, x: torch.Tensor) -> torch.Tensor:
@@ -314,24 +304,8 @@ class PowerPipeline:
         (``(1, 4, nchan)`` at ``nout = 1``, as in the JAX package), and
         each call continues the stream from the previous block's carry."""
         with span("step"):
-            nout, mean, stokes = self._nout, self._mean, self._stokes
-            if self._pfb is not None:
-                out, self._carry = self._pfb(x, self._carry)
-                return out
-            if self._power_fn is not None:
-                return self._power_fn(x)
-            if self._device_layout:
-                fn = (CP.baseband2stokes_scrunch_rows_cuda if stokes
-                      else CP.baseband2power_scrunch_rows_cuda)
-                out = fn(x, nout, mean=mean)
-                return out[0] if nout == 1 else out
-            if nout == 1:
-                fn = (CP.baseband2stokes_cuda if stokes
-                      else CP.baseband2power_cuda)
-                return fn(x, mean=mean)
-            fn = (CP.baseband2stokes_scrunch_cuda if stokes
-                  else CP.baseband2power_scrunch_cuda)
-            return fn(x, nout, mean=mean)
+            out, self._carry = self._step(x, self._carry)
+            return out
 
     def warmup(self, ndf: int, nchk: int = C.NCHK_NIC) -> float:
         """Build and load the kernels and launch them once on zeros made on
@@ -344,7 +318,7 @@ class PowerPipeline:
             shape = (ndf, nchk * C.DT_SIZE // 2)
         zeros = torch.zeros(shape, dtype=torch.int16, device=self.device)
         self.power(zeros)
-        if self._pfb is not None:
+        if self._pfb_route:
             # the step with a carry as well; the stream starts without one
             self.power(zeros)
             self._carry = None
@@ -359,7 +333,7 @@ class PowerPipeline:
 
     def _mode(self) -> str:
         mode = "Stokes" if self._stokes else "power"
-        if self._pfb is None:
+        if not self._pfb_route:
             return mode
         return f"PFB {mode} ({self._pfb_route})"
 
