@@ -1976,7 +1976,7 @@ def probe_phase(dev: torch.device, gen: torch.Generator,
     for line in ptxas_lines(_build.ptxas_report(lib_path)):
         if line.startswith(("probe_karatsuba.cu", "probe_planes.cu")):
             log(f"[7] ptxas {line}")
-    counts = _build.tensor_core_counts(lib_path)
+    counts = _build.sass_counts(lib_path)
     for kernel, n in counts.items():
         if "karatsuba_kernel" in kernel or "planes_kernel" in kernel:
             log(f"[7] sass {kernel}: {n['HMMA']} HMMA, {n['HGMMA']} HGMMA")

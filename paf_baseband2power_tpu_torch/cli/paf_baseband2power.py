@@ -217,6 +217,7 @@ def main(argv=None) -> int:
             "kernel_launches": stats.kernel_launches,
             "partial_bytes": stats.partial_bytes,
             "pfb_stage_depths": stats.pfb_stage_depths,
+            "pfb_fft_lane_stages": stats.pfb_fft_lane_stages,
             "slot_waits": stats.slot_waits,
             "record_waits": stats.record_waits,
             "direct_h2d": stats.direct_h2d,

@@ -39,12 +39,22 @@
 //      FFTs side by side in a warp), with no barrier: lane p forms the FIR
 //      outputs of points n = p + P j, j < m = nfft / P, straight from the
 //      ring into registers; an m-point radix-2 FFT in its registers (m a
-//      template parameter, fully unrolled); the twiddles W_nfft^(p k1); a
-//      P-point radix-2 FFT across the lanes in log2(P) __shfl_xor_sync
-//      stages. Lane p then holds bin k1 + m k2 in register i, k1 = brev_m(i)
-//      and k2 = brev_P(p), and writes it to position i P + p of the window
-//      in shared memory (consecutive lanes, consecutive addresses); then one
-//      barrier;
+//      template parameter, fully unrolled); the twiddles W_nfft^(p k1);
+//      then the P-point factor over the lanes. At nfft <= 128 it is a
+//      radix-2 FFT across the lanes in log2(P) __shfl_xor_sync stages: lane
+//      p then holds bin k1 + m k2 in register i, k1 = brev_m(i) and k2 =
+//      brev_P(p), and writes it to position i P + p of the window in shared
+//      memory (consecutive lanes, consecutive addresses). The wide kernels
+//      (m = 8-32) transpose instead, through the warp's own nfft slot of
+//      that window: lane p stores register r at float2 r 32 + (p ^ r L), L
+//      = 32 / m; lane q = c L + l loads points p = l + L i of row c into
+//      register i (the swizzle leaves both conflict-free), runs a second
+//      m-point register FFT, the twiddles W_32^(l k) and log2(L) shuffle
+//      stages across the L lanes of a column (none at nfft 1024), and
+//      writes register i, bin brev_m(c) + m (brev_m(i) + m brev_L(l)), to
+//      position i 32 + q. At nfft 1024 that took the kernel from 6.4x its
+//      bound to 5.6x, 7.0x to 6.1x in Stokes, on an H100 (PERF.md). Then
+//      one barrier;
 //   3. detects |x|^2 + |y|^2 or I, Q, U, V per position and adds it, in
 //      float64, to the thread's accumulators: a thread owns the same
 //      positions, so the same bins, in every window of the tile.
@@ -297,6 +307,12 @@ __device__ __forceinline__ void pfb_body(const PfbArgs& a) {
   const int lp = a.log2n - log2i(kM);         // log2(P)
   const int G = 32 >> lp;                     // FFTs side by side per warp
   const int p = lane & (P - 1);
+  // the wide kernels copy their samples (step 1) and take the FFT's P-point
+  // lane factor as a transpose and a kM-point register FFT, then kL = 32 /
+  // kM lanes a column (step 2); the others load, and span all P lanes
+  constexpr bool kWide = kM >= kWideM;
+  constexpr int kL = kWide ? 32 / kM : 1;
+  const int span = kWide ? kL : P;            // lanes the shuffle stages span
   const int64_t ch = blockIdx.x % a.nchan;
   const int64_t tile = blockIdx.x / a.nchan;
   const int64_t g = tile / a.nsub;
@@ -309,9 +325,8 @@ __device__ __forceinline__ void pfb_body(const PfbArgs& a) {
   // ntap - 1 + s W ... The wide kernels copy (plan_pfb): the halo and, with
   // two stages, step 0 go first, so that the set-up below runs while they
   // are in flight. The others load, after the set-up.
-  constexpr bool kCopy = kM >= kWideM;
   const int64_t p0 = (e0 - a.ntap + 1) * nfft;
-  if constexpr (kCopy) {
+  if constexpr (kWide) {
     copy_run<L>(ring, a, ch, p0, static_cast<int>(a.halo), 0);
     if (a.depth == 2) copy_run<L>(ring, a, ch, p0 + a.halo, sp, a.ntap - 1);
     cp_async_commit();
@@ -329,7 +344,7 @@ __device__ __forceinline__ void pfb_body(const PfbArgs& a) {
     tws[i] = l & h ? twiddle(l & (h - 1), 2 * h) : make_float2(1.0f, 0.0f);
   }
   for (int i = tid; i < a.ntap * nfft; i += kPfbThreads) coef[i] = a.coeffs[i];
-  if constexpr (!kCopy) {
+  if constexpr (!kWide) {
     for (int64_t q = tid; q < a.halo; q += kPfbThreads) {
       ring[q] = load_pair<L>(a, ch, p0 + q);
     }
@@ -348,7 +363,7 @@ __device__ __forceinline__ void pfb_body(const PfbArgs& a) {
     // read last (every warp left them at its barrier after the FFTs); with
     // copies, then wait for step st's rows: with two stages the copies of
     // step st + 1 stay in flight through this step's FFTs
-    if constexpr (kCopy) {
+    if constexpr (kWide) {
       if (st + a.depth - 1 < nsteps) {
         const int row0 = base + a.ntap - 1 + (a.depth - 1) * W;
         copy_run<L>(ring, a, ch, p0 + a.halo + (st + a.depth - 1) * sp, sp,
@@ -397,10 +412,32 @@ __device__ __forceinline__ void pfb_body(const PfbArgs& a) {
           v[i] = cmul(v[i], tw[bit_reverse(i, log2i(kM)) * 32 + p]);
         }
       }
+      float2* slot = buf + pol * sp + j * nfft;
+      if constexpr (kWide) {
+        // lane p's register r (point k1 = brev(r) of its 32-point column)
+        // to row r, at p ^ (r kL): conflict-free, as is lane q = c kL + l
+        // taking points p = l + kL i of row c into register i
+#pragma unroll
+        for (int r = 0; r < kM; ++r) slot[r * 32 + (p ^ (r * kL))] = v[r];
+        __syncwarp();
+        const int c = lane / kL, l = lane % kL;
+#pragma unroll
+        for (int i = 0; i < kM; ++i) {
+          v[i] = slot[c * 32 + ((l + kL * i) ^ (c * kL))];
+        }
+        __syncwarp();
+        register_fft<kM>(v, twm);
+        if constexpr (kL > 1) {   // W_32^(l k) = W_nfft^(kM l k)
+#pragma unroll
+          for (int i = 1; i < kM; ++i) {
+            v[i] = cmul(v[i], tw[bit_reverse(i, log2i(kM)) * 32 + kM * l]);
+          }
+        }
+      }
 #pragma unroll
       for (int s = 0; s < 5; ++s) {
         const int h = 16 >> s;
-        if (h >= P) continue;
+        if (h >= span) continue;
         const float2 w = tws[s * 32 + p];
         const float sg = p & h ? -1.0f : 1.0f;
 #pragma unroll
@@ -410,7 +447,7 @@ __device__ __forceinline__ void pfb_body(const PfbArgs& a) {
           v[i] = cmul(make_float2(o.x + sg * v[i].x, o.y + sg * v[i].y), w);
         }
       }
-      float2* out = buf + pol * sp + j * nfft + p;
+      float2* out = slot + p;
 #pragma unroll
       for (int i = 0; i < kM; ++i) out[i * P] = v[i];
     }
@@ -438,10 +475,19 @@ __device__ __forceinline__ void pfb_body(const PfbArgs& a) {
     base -= base >= R ? R : 0;
   }
 
-  // position i P + p holds bin brev_m(i) + m brev_P(p)
+  // position i P + p holds bin brev_m(i) + m brev_P(p); after a transpose,
+  // position i 32 + q, q = c kL + l, bin brev_m(c) + m (brev_m(i) + m
+  // brev_kL(l))
   const auto bin = [&](int pos) {
-    return bit_reverse(pos >> lp, log2i(kM)) +
-           kM * bit_reverse(pos & (P - 1), lp);
+    if constexpr (kWide) {
+      const int q = pos & 31;
+      return bit_reverse(q / kL, log2i(kM)) +
+             kM * (bit_reverse(pos >> 5, log2i(kM)) +
+                   kM * bit_reverse(q % kL, log2i(kL)));
+    } else {
+      return bit_reverse(pos >> lp, log2i(kM)) +
+             kM * bit_reverse(pos & (P - 1), lp);
+    }
   };
   double* out = a.partial + (tile * a.nchan + ch) * ns * nfft;
   if (nfft >= kPfbThreads) {
@@ -497,13 +543,17 @@ __global__ void pfb_finish_kernel(const double* __restrict__ partial,
 // blocks per SM). nfft >= 256: a minimum of one block per SM lets the
 // 8-32-point register FFTs have the registers they need (94-195, 1-2 blocks
 // per SM; at nfft 1024 shared memory allows one anyway); without it ptxas
-// spilled some instantiations to keep to 64 or 128 registers.
+// spilled some instantiations to keep to 64 or 128 registers. At nfft 512
+// (kM = 16) a minimum of two, which shared memory allows: uncapped, the
+// transposed FFT took 131 registers in Stokes, one block an SM, and ran
+// 8-16% slower than the lane stages (PERF.md); capped, 103-113, no spill.
 template <class L, bool kStokes, int kM>
 __global__ void __launch_bounds__(kPfbThreads) pfb_kernel(PfbArgs a) {
   pfb_body<L, kStokes, kM>(a);
 }
 template <class L, bool kStokes, int kM>
-__global__ void __launch_bounds__(kPfbThreads, 1) pfb_kernel_wide(PfbArgs a) {
+__global__ void __launch_bounds__(kPfbThreads, kM == 16 ? 2 : 1)
+    pfb_kernel_wide(PfbArgs a) {
   pfb_body<L, kStokes, kM>(a);
 }
 
@@ -558,10 +608,11 @@ cudaError_t plan_pfb(PfbArgs& a, PfbKernel kernel, size_t* smem) {
                               static_cast<int>(*smem));
 }
 
-// *depth: the stages of a launch made.
+// *depth: the stages of a launch made; *lanes: the cross-lane shuffle
+// stages of its FFTs.
 template <class L, bool kStokes, int kM>
 int launch_pfb_m(PfbArgs& a, int64_t nblocks, cudaStream_t stream,
-                 int* depth) {
+                 int* depth, int* lanes) {
   PfbKernel kernel;
   if constexpr (kM >= kWideM) {
     kernel = pfb_kernel_wide<L, kStokes, kM>;
@@ -573,7 +624,10 @@ int launch_pfb_m(PfbArgs& a, int64_t nblocks, cudaStream_t stream,
   if (e != cudaSuccess) return static_cast<int>(e);
   kernel<<<static_cast<unsigned>(nblocks), kPfbThreads, smem, stream>>>(a);
   e = cudaGetLastError();
-  if (e == cudaSuccess) *depth = a.depth;
+  if (e == cudaSuccess) {
+    *depth = a.depth;
+    *lanes = kM >= kWideM ? log2i(32 / kM) : a.log2n - log2i(kM);
+  }
   return static_cast<int>(e);
 }
 
@@ -581,24 +635,28 @@ int launch_pfb_m(PfbArgs& a, int64_t nblocks, cudaStream_t stream,
 // take nfft 128-1024 only (the JAX package's rows rule)
 template <class L, bool kStokes>
 int launch_pfb(PfbArgs& a, int64_t nblocks, cudaStream_t stream,
-               int* depth) {
+               int* depth, int* lanes) {
   constexpr bool wire = std::is_same<L, PfbWire>::value;
   switch (a.nfft >> 5) {
     case 0:
     case 1:
       if constexpr (wire) {
-        return launch_pfb_m<L, kStokes, 1>(a, nblocks, stream, depth);
+        return launch_pfb_m<L, kStokes, 1>(a, nblocks, stream, depth, lanes);
       }
       break;
     case 2:
       if constexpr (wire) {
-        return launch_pfb_m<L, kStokes, 2>(a, nblocks, stream, depth);
+        return launch_pfb_m<L, kStokes, 2>(a, nblocks, stream, depth, lanes);
       }
       break;
-    case 4: return launch_pfb_m<L, kStokes, 4>(a, nblocks, stream, depth);
-    case 8: return launch_pfb_m<L, kStokes, 8>(a, nblocks, stream, depth);
-    case 16: return launch_pfb_m<L, kStokes, 16>(a, nblocks, stream, depth);
-    default: return launch_pfb_m<L, kStokes, 32>(a, nblocks, stream, depth);
+    case 4:
+      return launch_pfb_m<L, kStokes, 4>(a, nblocks, stream, depth, lanes);
+    case 8:
+      return launch_pfb_m<L, kStokes, 8>(a, nblocks, stream, depth, lanes);
+    case 16:
+      return launch_pfb_m<L, kStokes, 16>(a, nblocks, stream, depth, lanes);
+    default:
+      return launch_pfb_m<L, kStokes, 32>(a, nblocks, stream, depth, lanes);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -615,10 +673,12 @@ extern "C" {
 // the step's max(4, 1024 / nfft) windows; nsub = ceil(wpg / ts) tiles per
 // spectrum. *depth: the stages of the sample ring the launch took, 2 (a
 // step's samples copied during the step before) or 1 (before its FFTs).
+// *lanes: the cross-lane shuffle stages of the launch's FFTs (0 where a
+// transpose in shared memory takes the lane factor).
 int pafb2p_pfb(const void* x, int rows, int64_t ndf, int64_t nchk,
                int64_t nfft, int64_t ntap, int64_t nout, int stokes,
                const void* coeffs, const void* hist, int64_t ts, int64_t nsub,
-               void* partial, void* stream, int* depth) {
+               void* partial, void* stream, int* depth, int* lanes) {
   const cudaError_t bad = cudaErrorInvalidValue;
   if (nfft < 2 || nfft > kMaxNfft || (nfft & (nfft - 1)) || ntap < 1 ||
       ntap > kMaxNtap || ndf <= 0 || nchk <= 0 || nout <= 0) {
@@ -653,11 +713,11 @@ int pafb2p_pfb(const void* x, int rows, int64_t ndf, int64_t nchk,
   if (nblocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows) {
-    return stokes ? launch_pfb<PfbRows, true>(a, nblocks, s, depth)
-                  : launch_pfb<PfbRows, false>(a, nblocks, s, depth);
+    return stokes ? launch_pfb<PfbRows, true>(a, nblocks, s, depth, lanes)
+                  : launch_pfb<PfbRows, false>(a, nblocks, s, depth, lanes);
   }
-  return stokes ? launch_pfb<PfbWire, true>(a, nblocks, s, depth)
-                : launch_pfb<PfbWire, false>(a, nblocks, s, depth);
+  return stokes ? launch_pfb<PfbWire, true>(a, nblocks, s, depth, lanes)
+                : launch_pfb<PfbWire, false>(a, nblocks, s, depth, lanes);
 }
 
 // partial (nout * nsub, nchan, ns, nfft) float64 -> out (nout, ns, nchan *

@@ -153,10 +153,12 @@ def ptxas_report(lib: str) -> str:
         return ""
 
 
-def tensor_core_counts(lib: str) -> dict[str, dict[str, int]]:
-    """``{kernel: {"HMMA": n, "HGMMA": n}}``: the tensor-core instructions
-    in each kernel's SASS (mangled names), from ``cuobjdump -sass`` of
-    ``lib``, the tool beside ``nvcc``."""
+def sass_counts(lib: str, ops: tuple = ("HGMMA", "HMMA")
+                ) -> dict[str, dict[str, int]]:
+    """``{kernel: {op: n}}``: the instructions ``ops`` (by default the
+    tensor cores') in each kernel's SASS (mangled names), from ``cuobjdump
+    -sass`` of ``lib``, the tool beside ``nvcc``. An instruction counts for
+    the first of ``ops`` it is."""
     tool = os.path.join(os.path.dirname(find_nvcc() or ""), "cuobjdump")
     if not os.access(tool, os.X_OK):
         tool = shutil.which("cuobjdump") or tool
@@ -167,9 +169,9 @@ def tensor_core_counts(lib: str) -> dict[str, dict[str, int]]:
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :", 1)[1].strip()
-            counts[name] = {"HMMA": 0, "HGMMA": 0}
+            counts[name] = dict.fromkeys(ops, 0)
         elif name:
-            for op in ("HGMMA", "HMMA"):
+            for op in ops:
                 if f" {op}." in line or f" {op} " in line:
                     counts[name][op] += 1
                     break
@@ -193,7 +195,7 @@ def _run_jobs(jobs: list[tuple[list[str], str]]) -> list[str]:
 
 
 _SIGNATURES = {
-    "pafb2p_pfb": "p i l l l l l i p p l l p p p",
+    "pafb2p_pfb": "p i l l l l l i p p l l p p p p",
     "pafb2p_pfb_finish": "p p l l l l l i d d p",
     "pafb2p_power_wire": "p l l l p p",
     "pafb2p_power_rows": "p l l l p p",

@@ -12,7 +12,10 @@ the float64 partials each call writes in ``partial_bytes``, and the
 kernel's launches by the stages of its sample ring that ``pafb2p_pfb``
 reports having launched with in ``stage_depths`` (2 where a step's
 samples are copied while the step before runs its FFTs, 1 where they
-reach shared memory before the step's own).
+reach shared memory before the step's own), and in ``fft_lane_stages`` by
+the cross-lane shuffle stages of its FFTs that it reports (at nfft 256-1024
+a transpose in shared memory takes the FFT's lane factor, leaving 2, 1
+and 0 stages; at nfft <= 128, log2 of the lanes an FFT spans).
 
 While a torch profiler records, ``_launch``'s steps are spans
 (``runtime/trace.py``): ``pafb2p.pfb.carry`` (the previous block's halo
@@ -93,6 +96,8 @@ _coeffs: dict = {}
 partial_bytes: collections.Counter = collections.Counter()
 # the kernel's launches by stage depth
 stage_depths: collections.Counter = collections.Counter()
+# the kernel's launches by the cross-lane shuffle stages of their FFTs
+fft_lane_stages: collections.Counter = collections.Counter()
 
 
 
@@ -114,7 +119,8 @@ def _launch(block: torch.Tensor, layout: str, nfft: int, ntap: int,
     (``probes/pfb_compare.py``), else the package's. Counts the launch in
     ``stage_depths`` by the depth the kernel reports (0 from an older
     build that takes no depth pointer: the C calling convention leaves the
-    extra argument unread).
+    extra argument unread), and in ``fft_lane_stages`` by the lane stages
+    it reports (not at all from a build that reports none).
 
     The partials are the call's own, from the caching allocator on the
     current stream, as ``ops/cuda_power.py``'s scratch: two pipelines on
@@ -146,15 +152,18 @@ def _launch(block: torch.Tensor, layout: str, nfft: int, ntap: int,
     div = (PF.mean_divisors(nout, wpg, ntap, stokes, hist is not None)
            if mean else [0.0])
     stream = torch.cuda.current_stream(block.device).cuda_stream
-    depth = ctypes.c_int(0)
+    depth, lanes = ctypes.c_int(0), ctypes.c_int(-1)
     with torch.cuda.device(block.device):
         with span("pfb.kernel"):
             _raise(lib, lib.pafb2p_pfb(
                 x.data_ptr(), int(layout == "rows"), ndf, nchk, nfft, ntap,
                 nout, int(stokes), coeffs.data_ptr(),
                 hist.data_ptr() if hist is not None else None, ts, nsub,
-                partial.data_ptr(), stream, ctypes.byref(depth)))
+                partial.data_ptr(), stream, ctypes.byref(depth),
+                ctypes.byref(lanes)))
         stage_depths[depth.value] += 1
+        if lanes.value >= 0:
+            fft_lane_stages[lanes.value] += 1
         with span("pfb.finish"):
             _raise(lib, lib.pafb2p_pfb_finish(
                 partial.data_ptr(), out.data_ptr(), nchan, nfft, nout, nsub,

@@ -7,14 +7,19 @@ older commit's, unpacked with ``git show <commit>:<path>``).
 
 It builds the other source beside the package's ``geometry.cuh`` and
 ``power.cu`` into ``.build/``, prints both builds' ptxas lines for the PFB
-kernels, holds both against the plain version in float64 at
-``--check-ndf`` frames (within 2e-5, peak-normalized) and checks that two
-calls of the package's kernel are bit-equal, then times both on one
+kernels and the ``SHFL`` instructions in each PFB kernel's SASS, holds
+both against the plain version in float64 at ``--check-ndf`` frames
+(within 2e-5, peak-normalized; nfft 128-1024, power and Stokes, wire and
+rows, ntap 4 and 8, with a carry, and a few other shapes) and checks that
+two calls of the package's kernel are bit-equal, then times both on one
 full-range block drawn on the card in turns (other, package, package,
 other; CUDA events, after a warm-up) in the five cases of
-``chip_smoke.py``'s phase 6, reading the SM clock and power while the
-card runs. In every check and case it reports whether the two builds'
-records are bit-equal. The last line is one JSON object.
+``chip_smoke.py``'s phase 6 and at nfft 256 and 512, reading the SM clock
+and power while the card runs. In every check and case it reports
+whether the two builds' records are bit-equal, and where they are not,
+how many elements differ and their largest difference over the float64
+record's peak; in every case the FFT lane stages each build reports
+(``cuda_pfb.fft_lane_stages``). The last line is one JSON object.
 """
 
 from __future__ import annotations
@@ -33,13 +38,21 @@ from ..ops import cuda_pfb as CF
 from ..ops import pfb as PF
 from ._common import PARITY_BOUND, peak_err
 
-# (case, nfft, Stokes, spectra): chip_smoke.py's phase 6
-CASES = [("nfft 128 power", 128, False, 1), ("nfft 1024 Stokes", 1024, True, 1),
-         ("nfft 1024 power", 1024, False, 1), ("nfft 128 Stokes", 128, True, 1),
-         ("nfft 128 power x 64 spectra", 128, False, 64)]
-CHECKS = [(32, 4, 1, False), (64, 8, 2, True), (128, 4, 1, False),
-          (128, 1, 4, True), (256, 8, 1, True), (512, 4, 2, False),
-          (1024, 4, 1, True), (1024, 8, 2, False), (8, 3, 1, True)]
+# (case, nfft, Stokes, spectra, ntap): chip_smoke.py's phase 6, then the
+# wide kernel's other sizes
+CASES = ([("nfft 128 power", 128, False, 1, 4),
+          ("nfft 1024 Stokes", 1024, True, 1, 4),
+          ("nfft 1024 power", 1024, False, 1, 4),
+          ("nfft 128 Stokes", 128, True, 1, 4),
+          ("nfft 128 power x 64 spectra", 128, False, 64, 4)]
+         + [(f"nfft {n} {'Stokes' if st else 'power'} ntap {t}", n, st, 1, t)
+            for n in (256, 512) for st in (False, True) for t in (4, 8)])
+# (nfft, ntap, nout, Stokes, layout), each with a carry
+CHECKS = ([(32, 4, 1, False, "wire"), (64, 8, 2, True, "wire"),
+           (128, 1, 4, True, "wire"), (512, 4, 2, False, "wire"),
+           (1024, 8, 2, False, "wire"), (8, 3, 1, True, "wire")]
+          + [(n, t, 1, st, lay) for n in (128, 256, 512, 1024) for t in (4, 8)
+             for st in (False, True) for lay in ("wire", "rows")])
 
 
 def build_other(source: str) -> str:
@@ -78,36 +91,56 @@ def main(argv=None) -> int:
         for line in _build.ptxas_report(lib._name).splitlines():
             if "pfb" in line or "Used" in line or "spill" in line:
                 print(f"[ptxas {name}] {line.strip()}", flush=True)
+        for kernel, n in _build.sass_counts(lib._name, ("SHFL",)).items():
+            if "pfb_kernel" in kernel:
+                print(f"[sass {name}] {kernel}: {n['SHFL']} SHFL", flush=True)
 
-    def run(which, x, nfft, ntap, nout, stokes, carry=None, mean=False):
-        return CF._launch(x, "wire", nfft, ntap, "hamming", nout, stokes,
+    def run(which, x, nfft, ntap, nout, stokes, carry=None, mean=False,
+            layout="wire"):
+        return CF._launch(x, layout, nfft, ntap, "hamming", nout, stokes,
                           mean, True, carry, lib=libs[which])[0]
+
+    def rows(x):
+        return x.view(args.nchk * 14, x.shape[0], 256)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.check_ndf)
     x, prev = (torch.randint(-32768, 32768, (args.check_ndf, args.nchk * 3584),
                              dtype=torch.int16, device=dev, generator=gen)
                for _ in range(2))
-    errors, bit_equal = {}, {}
-    for nfft, ntap, nout, stokes in CHECKS:
-        carry = PF.pfb_history(prev, nfft, ntap)
-        want = PF.pfb_spectra(x, nfft, ntap, nout=nout, stokes=True,
-                              history=carry, dtype=torch.float64)
+    errors, bit_equal, differ = {}, {}, {}
+    for nfft, ntap, nout, stokes, layout in CHECKS:
+        xl, pl = (x, prev) if layout == "wire" else (rows(x), rows(prev))
+        carry = PF.pfb_history(pl, nfft, ntap, layout)
+        want = PF.pfb_spectra(xl, nfft, ntap, nout=nout, stokes=True,
+                              history=carry, layout=layout,
+                              dtype=torch.float64)
         want = want if stokes else want[:, :1]
-        check = f"nfft {nfft} ntap {ntap} nout {nout} stokes {stokes}"
+        check = (f"nfft {nfft} ntap {ntap} nout {nout} stokes {stokes} "
+                 f"{layout}")
         got = {}
         for which in libs:
-            got[which] = run(which, x, nfft, ntap, nout, stokes, carry)
+            got[which] = run(which, xl, nfft, ntap, nout, stokes, carry,
+                             layout=layout)
             e = peak_err(got[which], want)
             errors[f"{which} {check}"] = e[1]
             if e[1] >= PARITY_BOUND:
-                raise SystemExit(f"{which} nfft {nfft} ntap {ntap}: "
-                                 f"{e[1]:.3e} against float64")
+                raise SystemExit(f"{which} {check}: {e[1]:.3e} against "
+                                 "float64")
         bit_equal[check] = torch.equal(got["package"], got["other"])
-        a = run("package", x, nfft, ntap, nout, stokes, carry, mean=True)
-        b = run("package", x, nfft, ntap, nout, stokes, carry, mean=True)
+        if not bit_equal[check]:
+            d = (got["package"].double() - got["other"].double()).abs()
+            differ[check] = {"elements": int((d != 0).sum()),
+                             "of": d.numel(),
+                             "max_over_peak": (d.max() / want.abs().max()
+                                               ).item()}
+            print(f"[differ] {check}: {differ[check]}", flush=True)
+        a = run("package", xl, nfft, ntap, nout, stokes, carry, mean=True,
+                layout=layout)
+        b = run("package", xl, nfft, ntap, nout, stokes, carry, mean=True,
+                layout=layout)
         if not torch.equal(a, b):
-            raise SystemExit(f"nfft {nfft}: two calls differ")
+            raise SystemExit(f"{check}: two calls differ")
     print(f"[check] {args.check_ndf} x {args.nchk}: both builds within "
           f"{PARITY_BOUND} of float64 (worst {max(errors.values()):.3e}); "
           "two calls of the package's bit-equal; the builds' records "
@@ -129,11 +162,18 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         return t0.elapsed_time(t1) / n
 
-    times, load = {}, {}
-    for case, nfft, stokes, nout in CASES:
-        fns = {w: (lambda w=w: run(w, big, nfft, 4, nout, stokes))
+    times, load, lanes = {}, {}, {}
+    for case, nfft, stokes, nout, ntap in CASES:
+        fns = {w: (lambda w=w: run(w, big, nfft, ntap, nout, stokes))
                for w in libs}
-        bit_equal[case] = torch.equal(fns["package"](), fns["other"]())
+        rec = {}
+        for w in libs:
+            before = CF.fft_lane_stages.copy()
+            rec[w] = fns[w]()
+            lanes[f"{case} {w}"] = (dict(CF.fft_lane_stages - before)
+                                    or "not reported")
+        bit_equal[case] = torch.equal(rec["package"], rec["other"])
+        del rec
         o1, p1, p2, o2 = (ms(fns[w], args.iters)
                           for w in ("other", "package", "package", "other"))
         times[case] = {"package": (p1 + p2) / 2, "other": (o1 + o2) / 2}
@@ -145,11 +185,14 @@ def main(argv=None) -> int:
         print(f"[time] {case}: package {times[case]['package']:.4f} ms, "
               f"other {times[case]['other']:.4f} ms per {args.ndf} x "
               f"{args.nchk} block ({smi('name,power.limit')}); records "
-              f"{'' if bit_equal[case] else 'not '}bit-equal", flush=True)
+              f"{'' if bit_equal[case] else 'not '}bit-equal; FFT lane "
+              f"stages: package {lanes[f'{case} package']}, other "
+              f"{lanes[f'{case} other']}", flush=True)
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "smi": smi("name,power.limit"), "ndf": args.ndf,
                       "nchk": args.nchk, "ms": times, "under_load": load,
-                      "errors": errors, "bit_equal": bit_equal}))
+                      "errors": errors, "bit_equal": bit_equal,
+                      "differ": differ, "lane_stages": lanes}))
     return 0
 
 

@@ -66,7 +66,7 @@ def report(name: str, path: str) -> None:
         if source in SOURCES and ("Compiling entry" in line or "Used" in line
                                   or "spill" in line):
             print(f"[ptxas {name}] {line.strip()}", flush=True)
-    for kernel, n in _build.tensor_core_counts(path).items():
+    for kernel, n in _build.sass_counts(path).items():
         if any(k in kernel for k in KERNELS):
             print(f"[sass {name}] {kernel}: {n}", flush=True)
 

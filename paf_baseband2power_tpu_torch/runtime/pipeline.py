@@ -69,6 +69,8 @@ class PipelineStats:
     partial_bytes: int = 0           # float64 PFB partials written (bytes)
     # PFB kernel launches by the stages of its sample ring (1: none ahead)
     pfb_stage_depths: dict = dataclasses.field(default_factory=dict)
+    # PFB kernel launches by the cross-lane shuffle stages of their FFTs
+    pfb_fft_lane_stages: dict = dataclasses.field(default_factory=dict)
     slot_waits: int = 0              # an H2D from a slot or the source not done
     record_waits: int = 0            # a block's record not yet on the host
     direct_h2d: int = 0              # blocks H2D straight from the source
@@ -347,6 +349,7 @@ class PowerPipeline:
         launches0 = sum(CP.launches.values())
         partials0 = sum(CPF.partial_bytes.values())
         depths0 = collections.Counter(CPF.stage_depths)
+        lanes0 = collections.Counter(CPF.fft_lane_stages)
         t_start = t_block = time.perf_counter()
         self.log.info("pipeline start: device=%s depth=%d nout=%d layout=%s "
                       "mode=%s", self.device, self._depth, self._nout,
@@ -410,12 +413,16 @@ class PowerPipeline:
         stats.partial_bytes = sum(CPF.partial_bytes.values()) - partials0
         stats.pfb_stage_depths = dict(sorted(
             (CPF.stage_depths - depths0).items()))
+        stats.pfb_fft_lane_stages = dict(sorted(
+            (CPF.fft_lane_stages - lanes0).items()))
         self.log.info(
             "pipeline done: %d blocks, %.3f s, %.3g samp/s, %.2fx real time, "
             "%d kernel launches, %d partial bytes, PFB launches by stage "
-            "depth %s, %d slot waits, %d record waits, %d direct H2D",
+            "depth %s and by FFT lane stages %s, %d slot waits, %d record "
+            "waits, %d direct H2D",
             stats.nblocks, stats.elapsed, stats.samples_per_sec,
             stats.realtime_fraction, stats.kernel_launches,
-            stats.partial_bytes, stats.pfb_stage_depths, stats.slot_waits,
-            stats.record_waits, stats.direct_h2d)
+            stats.partial_bytes, stats.pfb_stage_depths,
+            stats.pfb_fft_lane_stages, stats.slot_waits, stats.record_waits,
+            stats.direct_h2d)
         return stats

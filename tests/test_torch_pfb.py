@@ -532,6 +532,85 @@ def test_warp_fft_index_map_matches_numpy_fft(nfft):
                                atol=1e-12 * np.abs(want).max())
 
 
+def _register_dif(a):
+    """In-register radix-2 DIF over the last axis (``register_fft``):
+    natural order in, bit-reversed out."""
+    m = a.shape[-1]
+    a = a.copy()
+    for s in range(m.bit_length() - 1):
+        half = m >> (s + 1)
+        for b in range(0, m, 2 * half):
+            for i in range(half):
+                u, v = a[:, b + i].copy(), a[:, b + i + half].copy()
+                a[:, b + i] = u + v
+                a[:, b + i + half] = (u - v) * np.exp(-2j * np.pi * (i << s)
+                                                      / m)
+    return a
+
+
+def _transpose_fft_model(x):
+    """numpy model of one FFT of ``csrc/pfb.cu:pfb_kernel_wide`` where a
+    transpose takes the lane factor: lane p of 32 holds points p + 32 j,
+    j < m = nfft / 32; the m-point DIF and the twiddles W_nfft^(p k1) as
+    in ``_warp_fft_model``; lane p stores register r at float2 r * 32 +
+    (p ^ r L) of the warp's slot, L = 32 / m; lane q = c L + l loads the
+    points p = l + L i of row c into register i; an m-point DIF, the
+    twiddles W_32^(l k) and log2(L) stages across the L lanes of a column;
+    lane q writes register i at position i * 32 + q. Returns the FFT as
+    written, the bin of each position, and the slot's index of each store
+    and load as ``(store[r, p], load[i, q])``."""
+    nfft = x.shape[-1]
+    m = nfft // 32
+    lanes_col = 32 // m
+    lm, ll = m.bit_length() - 1, lanes_col.bit_length() - 1
+    a = _register_dif(x.reshape(m, 32).T.astype(np.complex128))  # a[p, r]
+    k1 = np.array([_brev(r, lm) for r in range(m)])
+    lanes = np.arange(32)
+    a *= np.exp(-2j * np.pi * np.outer(lanes, k1) / nfft)
+    store = np.array([[r * 32 + (p ^ (r * lanes_col)) for p in lanes]
+                      for r in range(m)])
+    slot = np.full(nfft, np.nan, np.complex128)
+    for r in range(m):
+        slot[store[r]] = a[:, r]
+    c, l = lanes // lanes_col, lanes % lanes_col
+    load = np.array([c * 32 + ((l + lanes_col * i) ^ (c * lanes_col))
+                     for i in range(m)])
+    b = _register_dif(slot[load].T)                                 # b[q, i]
+    b *= np.exp(-2j * np.pi * np.outer(l, k1) / 32)
+    h = lanes_col // 2
+    while h >= 1:
+        other = b[lanes ^ h]
+        low = (lanes & h) != 0
+        w = np.exp(-2j * np.pi * (lanes & (h - 1)) / (2 * h))
+        b = np.where(low[:, None], (other - b) * w[:, None], b + other)
+        h //= 2
+    written = b.T.reshape(-1)                            # position i * 32 + q
+    bins = np.array([_brev(q // lanes_col, lm)
+                     + m * (_brev(pos >> 5, lm) + m * _brev(q % lanes_col, ll))
+                     for pos, q in ((pos, pos & 31) for pos in range(nfft))])
+    return written, bins, (store, load)
+
+
+@pytest.mark.parametrize("nfft", [256, 512, 1024])
+def test_transpose_fft_index_map_matches_numpy_fft(nfft):
+    """The wide kernel's FFT through a swizzled transpose in shared memory,
+    and the bin it assigns to each written position, give ``np.fft.fft``;
+    the swizzle is a bijection onto the warp's slot, and in every store and
+    load the 16 lanes of each half-warp hit 16 distinct bank pairs (float2
+    index mod 16), so neither conflicts."""
+    rng = np.random.default_rng(nfft)
+    x = rng.standard_normal(nfft) + 1j * rng.standard_normal(nfft)
+    written, bins, (store, load) = _transpose_fft_model(x)
+    assert sorted(bins) == list(range(nfft))
+    want = np.fft.fft(x)
+    np.testing.assert_allclose(written, want[bins], rtol=0,
+                               atol=1e-12 * np.abs(want).max())
+    for index in (store, load):
+        assert sorted(index.reshape(-1)) == list(range(nfft))
+        for half in (index[:, :16], index[:, 16:]):
+            assert all(len(set(row % 16)) == 16 for row in half)
+
+
 def test_tile_slots_cover_whole_steps():
     for nfft in CF.CUDA_NFFTS:
         ts, w = CF.tile_slots(nfft), CF.step_windows(nfft)

@@ -6,7 +6,9 @@ ntap 1 and 8, the rows layout, Stokes, nfft 128 and 1024. The launches,
 counted by the depth the kernel reports, take two stages at every shape
 of nfft 256-1024 but nfft 512 at ntap 8, where on an H100 two would leave
 an SM one block instead of two (the occupancy API), and one at nfft <=
-128, where the samples are loaded.
+128, where the samples are loaded. At nfft 256-1024 a transpose in shared
+memory takes the FFT's lane factor, and the launches count 2, 1 and 0
+cross-lane shuffle stages; at nfft <= 128, log2 of the lanes an FFT spans.
 
 Card only (marker ``cuda``; ``python -m pytest
 tests/test_torch_pfb_stages.py -m cuda --noconftest``). This file imports
@@ -50,6 +52,11 @@ CASES = {
 
 def _depth(nfft: int, ntap: int) -> int:
     return 1 if nfft < 256 or (nfft, ntap) == (512, 8) else 2
+
+
+def _lane_stages(nfft: int) -> int:
+    lanes = 1024 // nfft if nfft >= 256 else min(nfft, 32)
+    return lanes.bit_length() - 1
 
 
 def _block(g, ndf: int, layout: str, device) -> torch.Tensor:
@@ -96,3 +103,22 @@ def test_stage_depths(cuda_device, nfft):
                 depths[(ntap, stokes, layout)] = CF.stage_depths - before
     assert all(d == {_depth(nfft, ntap): 1}
                for (ntap, _, _), d in depths.items()), depths
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nfft", [8, 128, 256, 512, 1024])
+def test_fft_lane_stages(cuda_device, nfft):
+    layouts = ("wire", "rows") if nfft >= 128 else ("wire",)
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(nfft + 1)
+    lanes = {}
+    for layout in layouts:
+        x = _block(g, 128, layout, cuda_device)
+        for stokes in (False, True):
+            before = CF.fft_lane_stages.copy()
+            CF.pfb_spectra_cuda(x, nfft, 4, stokes=stokes, layout=layout)
+            lanes[(stokes, layout)] = CF.fft_lane_stages - before
+        before = CF.fft_lane_stages.copy()
+        CF.pfb_power_cuda(x, nfft, 4, layout=layout)
+        lanes[("power wrapper", layout)] = CF.fft_lane_stages - before
+    assert all(n == {_lane_stages(nfft): 1} for n in lanes.values()), lanes

@@ -288,6 +288,7 @@ def test_cli_stats_mean_header_log_profile(tmp_path, capsys, monkeypatch):
     assert stats["nblocks"] == 2 and stats["kernel_launches"] == 0
     assert stats["partial_bytes"] == 0         # no PFB kernel on the CPU
     assert stats["pfb_stage_depths"] == {}
+    assert stats["pfb_fft_lane_stages"] == {}
     assert stats["device"] == "cpu" and stats["samples_per_sec"] > 0
     # no event on the CPU, so nothing waits
     assert stats["slot_waits"] == 0 and stats["record_waits"] == 0
