@@ -4,8 +4,18 @@ against the plain reference of its configuration.
 A stream's record ``i`` is due for block ``pool[sent[i]]`` after block
 ``pool[sent[i - 1]]`` (a stateful reference, such as the PFB's carry, needs
 the previous block too). The reference works each distinct pair out once
-from the pool blocks themselves. Two numbers are compared, each with its
-limit:
+from the pool blocks themselves.
+
+The records come kept by that pool pair (``stream.Records``): each distinct
+array once, tested bit for bit against the pair's earlier arrays as it
+arrived, with the count of records bit-equal to it. Each kept array is
+judged once, and its verdict counts for every one of those records. That is
+exact, not a sample: the error is a function of the record's bytes and its
+pair's reference, so records bit-equal under one pair read the same error.
+It is also small: the streams take the pool in a fixed rotation and the
+program's records are deterministic, so a stream keeps about one array a
+pair, however many records a window delivers. Two numbers are compared,
+each with its limit:
 
 * ``missing_records``: records due and not delivered (or delivered beyond
   what was sent), limit 0;
@@ -66,6 +76,8 @@ class Verdict:
     attempted: int
     failed: int
     seconds: float = 0.0   # the reference's and the comparison's time
+    kept: list = dataclasses.field(default_factory=list)  # arrays a stream
+    kept_bytes: int = 0    # the kept arrays' bytes
 
     @property
     def correct(self) -> bool:
@@ -78,8 +90,9 @@ class Verdict:
 
 
 def compare(cfg: dict, streams: list, pool_block) -> Verdict:
-    """Judge every record of ``streams``; ``pool_block(i)`` gives pool block
-    ``i`` on the device the reference runs on."""
+    """Judge every record of ``streams``, each kept array once;
+    ``pool_block(i)`` gives pool block ``i`` on the device the reference
+    runs on."""
     t0 = time.perf_counter()
     ref = reference_module(cfg)
     kind, limit = cfg["compare"]["kind"], float(cfg["compare"]["limit"])
@@ -89,18 +102,20 @@ def compare(cfg: dict, streams: list, pool_block) -> Verdict:
     for s in streams:
         attempted += len(s.sent)
         missing += abs(len(s.sent) - len(s.records))
-        for i, got in enumerate(s.records[:len(s.sent)]):
-            prev = s.sent[i - 1] if (ref.STATEFUL and i > 0) else None
-            key = (prev, s.sent[i])
+        for (prev, cur), got, count in s.records.groups(s.sent):
+            key = (prev if ref.STATEFUL else None, cur)
             if key not in expected:
                 expected[key] = Expected(ref.record(
-                    pool_block(s.sent[i]),
-                    None if prev is None else pool_block(prev), cfg))
+                    pool_block(cur),
+                    None if key[0] is None else pool_block(key[0]), cfg))
             err = expected[key].error(kind, got)
             worst = max(worst, err)
-            bad += err > limit
+            bad += count if err > limit else 0
     numbers = {"missing_records": {"value": missing, "limit": 0},
                f"{kind}_err": {"value": min(worst, _FINITE_MAX),
                                "limit": limit}}
+    kept = [s.records.arrays() for s in streams]
     return Verdict(numbers=numbers, attempted=attempted, failed=missing + bad,
-                   seconds=time.perf_counter() - t0)
+                   seconds=time.perf_counter() - t0,
+                   kept=[len(k) for k in kept],
+                   kept_bytes=sum(a.nbytes for k in kept for a in k))

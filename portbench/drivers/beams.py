@@ -31,7 +31,7 @@ class _Sink:
 
     def write(self, row) -> None:
         with span("sink", self.trace):
-            self.stream.records.append(row.copy())
+            self.stream.keep(row)
             self.stream.times.append(time.perf_counter())
 
     def close(self) -> None:

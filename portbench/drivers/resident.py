@@ -4,8 +4,10 @@ The pool lives in HBM, as a capture NIC writing packets straight into GPU
 memory would leave it. One ``PowerPipeline`` takes each block through
 ``pipe.power(x)``, which chains the PFB carry itself; each record is copied
 D2H into one of ``depth`` pinned buffers of the harness, and at most
-``depth`` records are in flight. A warm prefix of blocks runs the same
-loop before the window.
+``depth`` records are in flight. A record that has landed is kept from its
+buffer by ``Stream.keep`` (a copy only when it differs from what its pool
+pair already holds). A warm prefix of blocks runs the same loop before the
+window.
 """
 
 from __future__ import annotations
@@ -46,23 +48,24 @@ class Session:
             out = self.pipe.power(self.pool[s.sent[-1]])
         with span("d2h", self.trace):
             if len(self.host) < self.depth:
-                self.host.append(torch.empty(out.shape, dtype=out.dtype,
-                                             pin_memory=self.cuda))
-            buf = self.host[i % self.depth]
+                buf = torch.empty(out.shape, dtype=out.dtype,
+                                  pin_memory=self.cuda)
+                self.host.append((buf, buf.numpy()))
+            buf, view = self.host[i % self.depth]
             buf.copy_(out, non_blocking=self.cuda)
             done = None
             if self.cuda:
                 done = torch.cuda.Event()
                 done.record()
-        self.inflight.append((buf, done))
+        self.inflight.append((view, done))
 
     def _drain(self) -> None:
-        buf, done = self.inflight.popleft()
+        view, done = self.inflight.popleft()
         if done is not None:
             with span("wait", self.trace):
                 done.synchronize()
         with span("keep", self.trace):
-            self.stream.records.append(buf.numpy().copy())
+            self.stream.keep(view)
             self.stream.times.append(time.perf_counter())
 
     def _drain_all(self) -> None:

@@ -11,7 +11,9 @@ end-to-end metrics, with ``--trace 1`` its per-layer metrics, read from a
 ``torch.profiler`` trace of the window. After the window every record is
 judged against the configuration's plain reference (``check.py``); the
 numbers compared, each beside its limit, are the last lines on standard
-error and the last key of the line.
+error and the last key of the line. The line before them gives the
+comparison's time, the record arrays kept (``stream.Records``) and the
+process's peak host RSS.
 
 It needs as many CUDA devices as the cell asks for, and exits 2 without
 printing a result when there are fewer.
@@ -29,6 +31,7 @@ import importlib  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
+import resource  # noqa: E402
 import sys  # noqa: E402
 
 import torch  # noqa: E402
@@ -195,8 +198,11 @@ def main(argv=None) -> int:
         print(f"modules of JAX or the JAX package were loaded: {bad}",
               file=sys.stderr)
         return 3
-    print(f"reference and comparison: {verdict.seconds:.1f} s",
-          file=sys.stderr)
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    print(f"reference and comparison: {verdict.seconds:.1f} s; records "
+          f"kept: {sum(verdict.kept)} arrays (a stream: {verdict.kept}), "
+          f"{verdict.kept_bytes / 1e6:.2f} MB; peak host RSS: "
+          f"{rss / 1e9:.2f} GB", file=sys.stderr)
     sys.stderr.write("\n".join(verdict.lines()) + "\n")
     sys.stderr.flush()
     print(json.dumps(result), flush=True)
